@@ -10,32 +10,48 @@
 // of crop read plus pooled map written.
 //
 // Design: one block per (crop, strip of kRows pooled rows). The block forms
-// the strip's upscaled rows in shared memory on the fly from the crop (fp32
-// mean-sub and interleave upscale, rounded to bf16 where conv1 casts; zero
-// rows/cols outside [0, 2S) are conv1's zero padding), so the 2S x 2S image
-// never reaches device memory. Each thread computes two conv pixels x 32
-// channels with fp32 FMAs on the bf16-valued operands, adds the bias, applies
-// relu, and stores the strip's 2*kRows+1 conv rows to shared memory as bf16
-// (rounding commutes with max); the block then max-pools them and writes
-// only the pooled rows. Conv rows outside [0, S) hold zero, which is the
-// pool's padding since post-relu values are >= 0. This first version uses
-// SIMT FMAs, not tensor cores.
+// the strip's upscaled rows in shared memory from the crop (fp32 mean-sub
+// and interleave upscale, rounded to bf16 where conv1 casts, stored as
+// bf16; zero outside [0, 2S), which is conv1's zero padding), so the
+// 2S x 2S image never reaches device memory. conv1 runs on the tensor cores
+// as an implicit GEMM (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators): M = conv pixels of a conv row, N = 64, K = 7 ky x 24 where
+// 24 = the 21 (kx, ch) taps of one ky padded with zero weights. In the
+// strip's [col][ch] layout those 21 taps of conv column c are contiguous
+// at element 6c of the upscaled row, so each A fragment register is one
+// aligned 4-byte shared-memory load. The weights stay resident in shared
+// memory ([168 + 8 zero rows][64], padded pitch) and feed B through
+// ldmatrix. conv rows (bias, relu, bf16; rounding commutes with max) go to
+// a ring of 3 rows in shared memory, and each pooled row is max-pooled from
+// its 3 conv rows as soon as they exist, with 16-byte loads and stores.
+// Conv rows outside [0, S) hold zero, the pool's padding since post-relu
+// values are >= 0. kRows = 4 pooled rows per block computes 9 conv rows for
+// 8 (12% recompute) and keeps shared memory small enough for two blocks per
+// SM at S = 112.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 2;                  // pooled rows per block
-constexpr int kConvRows = 2 * kRows + 1;  // conv rows per block
+constexpr int kWarps = 7;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 4;                  // pooled rows per block
 constexpr int kURows = 4 * kRows + 7;     // upscaled rows per block
-constexpr int kTaps = 147;                // 7 * 7 * 3
 constexpr int kOut = 64;
+constexpr int kKy = 24;                   // padded taps per ky
+constexpr int kK = 176;                   // 7 * 24 padded to 11 k16 steps
+constexpr int kPitch = kOut + 8;          // bf16 pitch of weight / conv rows
 
-// floats of the upscaled strip, rounded up so the weights after it stay
-// 16-byte aligned for float4 loads
-__host__ __device__ inline int strip_floats(int S) {
-  return (kURows * (2 * S + 6) * 3 + 3) / 4 * 4;
+// bf16 elements of one upscaled strip row: columns -3 .. 2S+2, 3 channels
+__host__ __device__ inline int row_elems(int S) { return 6 * S + 18; }
+
+__host__ __device__ inline int strip_bytes(int S) {
+  return (kURows * row_elems(S) * 2 + 15) / 16 * 16;
+}
+
+inline int smem_bytes(int S) {
+  return strip_bytes(S) + kK * kPitch * 2 + 3 * S * kPitch * 2;
 }
 
 // Row-interpolated crop value at crop (row of upscaled row ur, column col),
@@ -50,16 +66,45 @@ __device__ __forceinline__ float row_interp(const float* img, int S, int ur,
                   : __fadd_rn(__fmul_rn(0.25f, y), __fmul_rn(0.75f, x));
 }
 
-__device__ __forceinline__ float upscaled(const float* img, int S, int ur,
-                                          int uc, int ch, float mean) {
-  if (ur < 0 || ur >= 2 * S || uc < 0 || uc >= 2 * S) return 0.f;
+__device__ __forceinline__ __nv_bfloat16 upscaled(const float* img, int S,
+                                                  int ur, int uc, int ch,
+                                                  float mean) {
+  if (ur < 0 || ur >= 2 * S || uc < 0 || uc >= 2 * S)
+    return __float2bfloat16_rn(0.f);
   const int j = uc >> 1;
   const int nb = (uc & 1) ? min(j + 1, S - 1) : max(j - 1, 0);
   const float x = row_interp(img, S, ur, j, ch, mean);
   const float y = row_interp(img, S, ur, nb, ch, mean);
   const float u = (uc & 1) ? __fadd_rn(__fmul_rn(0.75f, x), __fmul_rn(0.25f, y))
                            : __fadd_rn(__fmul_rn(0.25f, y), __fmul_rn(0.75f, x));
-  return __bfloat162float(__float2bfloat16_rn(u));
+  return __float2bfloat16_rn(u);
+}
+
+// Element offset of tap k within the strip, relative to conv row 2*jl's
+// first upscaled row and conv column 0. k >= 168 are zero-weight padding
+// and read in-row values of ky = 6.
+__device__ __forceinline__ int tap_offset(int k, int rowlen) {
+  const int ky = k < 7 * kKy ? k / kKy : 6;
+  const int jj = k < 7 * kKy ? k - kKy * ky : k - 7 * kKy;
+  return ky * rowlen + jj;
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* addr) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(addr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -67,107 +112,144 @@ stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w
             const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
             int S, float m0, float m1, float m2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int uw = 2 * S + 6;                    // upscaled cols -3 .. 2S+2
-  float* su = reinterpret_cast<float*>(smem);  // [kURows][uw][3]
-  float* sw = su + strip_floats(S);           // [kTaps][64]
-  __nv_bfloat16* sc = reinterpret_cast<__nv_bfloat16*>(sw + kTaps * kOut);
-                                               // [kConvRows][S][64]
+  const int rowlen = row_elems(S);
+  __nv_bfloat16* su = reinterpret_cast<__nv_bfloat16*>(smem);  // strip
+  __nv_bfloat16* sw =                                           // [kK][kPitch]
+      reinterpret_cast<__nv_bfloat16*>(smem + strip_bytes(S));
+  __nv_bfloat16* sc = sw + kK * kPitch;                  // [3][S][kPitch]
   const int sp = S / 2;
   const int strips = (sp + kRows - 1) / kRows;
   const int n = blockIdx.x / strips;
   const int pr0 = (blockIdx.x % strips) * kRows;
   const float* img = crops + static_cast<long long>(n) * S * S * 3;
   const float mean[3] = {m0, m1, m2};
+  const int tid = threadIdx.x;
 
   const int ur0 = 4 * pr0 - 5;                 // first upscaled row
-  for (int i = threadIdx.x; i < kURows * uw * 3; i += kThreads) {
-    const int ch = i % 3;
-    const int col = (i / 3) % uw;
-    const int row = i / (3 * uw);
-    su[i] = upscaled(img, S, ur0 + row, col - 3, ch, mean[ch]);
+  for (int i = tid; i < kURows * rowlen; i += kThreads) {
+    const int row = i / rowlen, e = i % rowlen;
+    su[i] = upscaled(img, S, ur0 + row, e / 3 - 3, e % 3, mean[e % 3]);
   }
-  for (int i = threadIdx.x; i < kTaps * kOut; i += kThreads)
-    sw[i] = __bfloat162float(w[i]);
+  for (int i = tid; i < kK * kOut; i += kThreads) {
+    const int k = i / kOut, o = i % kOut;
+    const int ky = k / kKy, jj = k % kKy;
+    sw[k * kPitch + o] = (ky < 7 && jj < 21) ? w[(21 * ky + jj) * kOut + o]
+                                             : __float2bfloat16_rn(0.f);
+  }
   __syncthreads();
 
-  // conv: item -> (local conv row j, conv cols 2m and 2m+1, channel half)
-  const int items = kConvRows * (S / 2) * 2;
-  for (int item = threadIdx.x; item < items; item += kThreads) {
-    const int half = item & 1;
-    const int m = (item >> 1) % (S / 2);
-    const int j = (item >> 1) / (S / 2);
-    const int c0 = 2 * m;
-    const int oc0 = 32 * half;
-    float acc0[32], acc1[32];
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int tpr = (S + 15) / 16;               // m16 tiles per conv row
+  // ldmatrix row of this lane within a k16 x n16 block of the weights
+  const __nv_bfloat16* bsrc =
+      sw + ((lane % 8) + 8 * ((lane / 8) % 2)) * kPitch + 8 * (lane / 16);
+
+  // group 0: local conv row 0; group gi >= 1: rows 2gi - 1 and 2gi, then
+  // pooled row pr0 + gi - 1 from rows 2gi - 2 .. 2gi.
+  for (int gi = 0; gi <= kRows; ++gi) {
+    const int first = gi == 0 ? 0 : 2 * gi - 1;
+    const int ntiles = (gi == 0 ? 1 : 2) * tpr;
+    for (int t0 = warp; t0 < ntiles; t0 += 2 * kWarps) {
+      // two m16 tiles: t0 and t0 + kWarps (the second may not exist)
+      int jl[2], col0[2], base[2][2];
 #pragma unroll
-    for (int o = 0; o < 32; ++o) acc0[o] = acc1[o] = 0.f;
-    for (int ky = 0; ky < 7; ++ky) {
-      const float* row = su + (2 * j + ky) * uw * 3;
-      for (int kx = 0; kx < 7; ++kx) {
+      for (int i = 0; i < 2; ++i) {
+        const int t = min(t0 + i * kWarps, ntiles - 1);
+        jl[i] = first + t / tpr;
+        col0[i] = (t % tpr) * 16;
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          const float v0 = row[(2 * c0 + kx) * 3 + ch];
-          const float v1 = row[(2 * c0 + 2 + kx) * 3 + ch];
-          const float4* wt = reinterpret_cast<const float4*>(
-              sw + ((ky * 7 + kx) * 3 + ch) * kOut + oc0);
+        for (int h = 0; h < 2; ++h)
+          base[i][h] = 2 * jl[i] * rowlen + 6 * min(col0[i] + g + 8 * h, S - 1);
+      }
+      float acc[2][8][4];
 #pragma unroll
-          for (int o4 = 0; o4 < 8; ++o4) {
-            const float4 wv = wt[o4];
-            acc0[4 * o4 + 0] += v0 * wv.x;
-            acc0[4 * o4 + 1] += v0 * wv.y;
-            acc0[4 * o4 + 2] += v0 * wv.z;
-            acc0[4 * o4 + 3] += v0 * wv.w;
-            acc1[4 * o4 + 0] += v1 * wv.x;
-            acc1[4 * o4 + 1] += v1 * wv.y;
-            acc1[4 * o4 + 2] += v1 * wv.z;
-            acc1[4 * o4 + 3] += v1 * wv.w;
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kK / 16; ++kk) {
+        const int off0 = tap_offset(16 * kk + 2 * q, rowlen);
+        const int off1 = tap_offset(16 * kk + 2 * q + 8, rowlen);
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          a[i][0] = *reinterpret_cast<const uint32_t*>(su + base[i][0] + off0);
+          a[i][1] = *reinterpret_cast<const uint32_t*>(su + base[i][1] + off0);
+          a[i][2] = *reinterpret_cast<const uint32_t*>(su + base[i][0] + off1);
+          a[i][3] = *reinterpret_cast<const uint32_t*>(su + base[i][1] + off1);
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bsrc + 16 * kk * kPitch + 16 * np);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
+            mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (t0 + i * kWarps >= ntiles) continue;
+        const int cr = 2 * pr0 - 1 + jl[i];      // global conv row
+        const bool valid = cr >= 0 && cr < S;
+        __nv_bfloat16* dst = sc + (jl[i] % 3) * S * kPitch;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int cc = col0[i] + g + 8 * h;
+          if (cc >= S) continue;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int o = 8 * nt + 2 * q;
+            const float v0 = valid ? fmaxf(acc[i][nt][2 * h] + bias[o], 0.f) : 0.f;
+            const float v1 =
+                valid ? fmaxf(acc[i][nt][2 * h + 1] + bias[o + 1], 0.f) : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(dst + cc * kPitch + o) =
+                __floats2bfloat162_rn(v0, v1);
           }
         }
       }
     }
-    const int cr = 2 * pr0 - 1 + j;            // global conv row
-    const bool valid = cr >= 0 && cr < S;
-    __nv_bfloat16* dst0 = sc + (j * S + c0) * kOut + oc0;
-    __nv_bfloat16* dst1 = dst0 + kOut;
+    __syncthreads();
+    const int pr = pr0 + gi - 1;
+    if (gi > 0 && pr < sp) {
+      // 3x3/2 max pool of local conv rows 2gi - 2 .. 2gi, 8 channels a thread
+      for (int i = tid; i < sp * (kOut / 8); i += kThreads) {
+        const int c8 = i % (kOut / 8), pc = i / (kOut / 8);
+        __nv_bfloat162 best[4];
 #pragma unroll
-    for (int o = 0; o < 32; ++o) {
-      const float b = bias[oc0 + o];
-      dst0[o] = __float2bfloat16_rn(valid ? fmaxf(acc0[o] + b, 0.f) : 0.f);
-      dst1[o] = __float2bfloat16_rn(valid ? fmaxf(acc1[o] + b, 0.f) : 0.f);
-    }
-  }
-  __syncthreads();
-
-  // 3x3/2 max pool of the strip's conv rows
-  for (int i = threadIdx.x; i < kRows * sp * kOut; i += kThreads) {
-    const int oc = i % kOut;
-    const int pc = (i / kOut) % sp;
-    const int r = i / (kOut * sp);
-    if (pr0 + r >= sp) continue;
-    float best = 0.f;
-    for (int dj = 0; dj < 3; ++dj) {
-      const __nv_bfloat16* row = sc + (2 * r + dj) * S * kOut;
-      for (int dc = -1; dc <= 1; ++dc) {
-        const int cc = 2 * pc + dc;
-        if (cc >= 0) best = fmaxf(best, __bfloat162float(row[cc * kOut + oc]));
+        for (int e = 0; e < 4; ++e) best[e] = __floats2bfloat162_rn(0.f, 0.f);
+        for (int dj = 0; dj < 3; ++dj) {
+          const __nv_bfloat16* row = sc + ((2 * gi - 2 + dj) % 3) * S * kPitch;
+          for (int dc = -1; dc <= 1; ++dc) {
+            const int cc = 2 * pc + dc;
+            if (cc < 0) continue;
+            const uint4 v =
+                *reinterpret_cast<const uint4*>(row + cc * kPitch + 8 * c8);
+            const __nv_bfloat162* vv = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) best[e] = __hmax2(best[e], vv[e]);
+          }
+        }
+        *reinterpret_cast<uint4*>(
+            out + ((static_cast<long long>(n) * sp + pr) * sp + pc) * kOut +
+            8 * c8) = *reinterpret_cast<const uint4*>(best);
       }
     }
-    out[((static_cast<long long>(n) * sp + pr0 + r) * sp + pc) * kOut + oc] =
-        __float2bfloat16_rn(best);
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-extern "C" int mimamo_stem_smem_bytes(int S) {
-  return (strip_floats(S) + kTaps * kOut) * 4 +
-         kConvRows * S * kOut * 2;
-}
-
 extern "C" int mimamo_stem(const void* crops, const void* w, const void* bias,
                            void* out, int N, int S, float m0, float m1,
                            float m2, void* stream) {
-  const int smem = mimamo_stem_smem_bytes(S);
+  const int smem = smem_bytes(S);
   cudaError_t err = cudaFuncSetAttribute(
       stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -29,6 +29,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# libcuda for cuTensorMapEncodeTiled (TMA descriptors, built on the host)
+LINK_FLAGS = ("-lcuda",)
 
 _lock = threading.Lock()
 _lib = None
@@ -46,7 +48,7 @@ def _nvcc() -> str:
 
 
 def _digest(sources: Sequence[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -83,7 +85,8 @@ def build() -> Path:
         link = subprocess.run(
             [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
              "-o", str(tmp / lib.name),
-             *(str(tmp / (src.stem + ".o")) for src in sources)],
+             *(str(tmp / (src.stem + ".o")) for src in sources),
+             *LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")

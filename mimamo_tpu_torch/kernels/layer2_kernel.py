@@ -9,23 +9,25 @@ downsample projection by 2 (``stride_in_1x1``); every block is
 round to the activation dtype; the projection, the residual add and the
 relu run in fp32; the residual stream is stored in the activation dtype.
 
-The kernel is ``csrc/layer2.cu``, an implicit-GEMM convolution with a fused
-bias/residual/relu epilogue, launched 13 times per call.
+The kernel is ``csrc/layer2.cu``: one launch per bottleneck block (4 per
+call), each CTA computing conv1 -> conv2 -> conv3 (+ block 0's projection)
+for 4 output rows of a frame with wgmma and TMA, y1 and y2 kept in shared
+memory. It takes output widths W <= 31.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ._build import I, P, Kernel
 
-KERNEL = Kernel("mimamo_conv_nhwc",
-                [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P])
+KERNEL = Kernel("mimamo_layer2_block", [P] * 10 + [I, I, I, I, P])
 BLOCKS, C_IN, WIDTH, OUT_W = 4, 256, 128, 512
+MAX_OUT_W = 31          # the kernel's padded grid has row stride 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,30 +109,13 @@ def layer2_plain(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
     return x.contiguous()
 
 
-def _conv_kernel(x: torch.Tensor, c: Conv, res: Optional[torch.Tensor] = None,
-                 relu: bool = True, out_dtype=torch.bfloat16) -> torch.Tensor:
-    n, h, w, cin = x.shape
-    cout, kh, kw, _ = c.weight.shape
-    pad = kh // 2
-    ho = (h + 2 * pad - kh) // c.stride + 1
-    wo = (w + 2 * pad - kw) // c.stride + 1
-    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=x.device)
-    KERNEL(x.data_ptr(), c.weight.data_ptr(), c.bias.data_ptr(),
-           None if res is None else res.data_ptr(), out.data_ptr(),
-           n, h, w, cin, cout, kh, kw, c.stride, pad,
-           int(res is not None and res.dtype == torch.float32),
-           int(out_dtype == torch.float32), int(relu),
-           torch.cuda.current_stream(x.device).cuda_stream)
-    return out
-
-
 def layer2_fused(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
     """[N, 2H, 2W, 256] layer1 output -> [N, H, W, 512] layer2 output, in
     ``x.dtype`` (NHWC).
 
     ``blocks``: :func:`pack_layer2_params` output. A CUDA tensor goes
-    through the kernel (bf16 only, 13 launches); a CPU tensor through
-    :func:`layer2_plain`.
+    through the kernel (bf16 only, W <= 31, one launch per block); a CPU
+    tensor through :func:`layer2_plain`.
     """
     _check(x, blocks)
     if x.device.type == "cpu":
@@ -140,11 +125,20 @@ def layer2_fused(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
                          f"got {x.dtype} on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (NHWC)")
+    n, h, w = x.shape[0], x.shape[1] // 2, x.shape[2] // 2
+    if w > MAX_OUT_W:
+        raise ValueError(f"the layer2 kernel takes output widths up to "
+                         f"{MAX_OUT_W}, got {w}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     for blk in blocks:
-        res = (_conv_kernel(x, blk["downsample"], relu=False,
-                            out_dtype=torch.float32)
-               if "downsample" in blk else x)
-        y1 = _conv_kernel(x, blk["conv1"])
-        y2 = _conv_kernel(y1, blk["conv2"])
-        x = _conv_kernel(y2, blk["conv3"], res=res)
+        ds = blk.get("downsample")
+        out = torch.empty((n, h, w, OUT_W), dtype=x.dtype, device=x.device)
+        KERNEL(x.data_ptr(), blk["conv1"].weight.data_ptr(),
+               blk["conv2"].weight.data_ptr(), blk["conv3"].weight.data_ptr(),
+               None if ds is None else ds.weight.data_ptr(),
+               blk["conv1"].bias.data_ptr(), blk["conv2"].bias.data_ptr(),
+               blk["conv3"].bias.data_ptr(),
+               None if ds is None else ds.bias.data_ptr(), out.data_ptr(),
+               n, h, w, x.shape[3], stream)
+        x = out
     return x

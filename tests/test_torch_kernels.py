@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mimamo_tpu import backbone as jbackbone
 from mimamo_tpu.config import BackboneSpec as JBackboneSpec
@@ -22,6 +23,7 @@ from mimamo_tpu_torch.config import BackboneSpec, PhaseSpec, PyramidSpec
 from mimamo_tpu_torch.kernels import layer2_kernel as tl2
 from mimamo_tpu_torch.kernels import phase_kernel as tphk
 from mimamo_tpu_torch.kernels import stem_kernel as tstem
+from mimamo_tpu_torch.preprocess import upscale2x
 
 
 def _complex(rng, shape):
@@ -152,6 +154,47 @@ def test_stem_general_crop_size_matches_xla_chain(order):
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
 
+def _stem_gemm_model(crops, w2, bias, mean):
+    """The stem kernel's implicit GEMM (csrc/stem.cu) in plain PyTorch: the
+    upscaled image as rows of [col][ch] with 3 zero columns each side, conv
+    pixel (r, c) taking, for each ky, the 24 elements from 6c of padded
+    row 2r + ky, against weights whose 21 (kx, ch) rows per ky are padded
+    with 3 zero rows."""
+    n, s = crops.shape[:2]
+    u = upscale2x(crops - torch.tensor(mean)).to(w2.dtype).float()
+    rows = F.pad(u, (0, 0, 3, 3, 3, 3)).reshape(n, 2 * s + 6, -1)
+    r, c, j = torch.arange(s), torch.arange(s), torch.arange(24)
+    ky = torch.arange(7)
+    sel = rows[:, 2 * r[:, None] + ky[None, :]]       # [N, S, 7, 6S + 18]
+    a = sel[..., 6 * c[:, None] + j[None, :]]          # [N, S, 7, S, 24]
+    a = a.permute(0, 1, 3, 2, 4).reshape(n, s, s, 7 * 24)
+    wpad = F.pad(w2.float().reshape(7, 21, 64), (0, 0, 0, 3)).reshape(168, 64)
+    y = F.relu(a @ wpad + bias).permute(0, 3, 1, 2)
+    y = F.max_pool2d(y, 3, stride=2, padding=1)
+    return y.permute(0, 2, 3, 1).to(w2.dtype)
+
+
+@pytest.mark.parametrize("order", ["rgb", "bgr"])
+def test_stem_kernel_gemm_layout_matches_pallas_f32(order):
+    """The kernel's K layout (7 ky x 24, zero-padded taps) against the
+    Pallas stem in interpret mode, f32, atol 1e-3 (tests/test_pallas.py)."""
+    crops, k7, b = _stem_inputs()
+    jw, jb = jstem.prepare_stem_weights(jnp.asarray(k7), jnp.asarray(b),
+                                        channel_order=order,
+                                        dtype=jnp.float32)
+    want = np.asarray(jstem.stem_fused(
+        jstem.prepare_stem_input(jnp.asarray(crops),
+                                 JBackboneSpec().mean_rgb),
+        jw, jb, dtype=jnp.float32, interpret=True))
+    w2, bias = tstem.prepare_stem_weights(
+        torch.from_numpy(k7.transpose(3, 2, 0, 1).copy()),
+        torch.from_numpy(b), order, torch.float32)
+    got = _stem_gemm_model(torch.from_numpy(crops), w2, bias,
+                           JBackboneSpec().mean_rgb).numpy()
+    assert got.shape == want.shape == (2, 56, 56, 64)
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
 def test_stem_wrapper_rejects_bad_shapes():
     w2, bias = torch.zeros((147, 64)), torch.zeros(64)
     mean = (0.0, 0.0, 0.0)
@@ -225,3 +268,71 @@ def test_layer2_wrapper_rejects_bad_shapes(layer2_params):
     with pytest.raises(ValueError):          # dtype mismatch
         tl2.layer2_fused(torch.zeros((1, 16, 16, 256), dtype=torch.bfloat16),
                          blocks)
+
+
+def _layer2_grid_model(x, blocks):
+    """layer2 in the layer2 kernel's formulation (csrc/layer2.cu), in plain
+    PyTorch: the H x W output on a grid of row stride 32 with one zero row
+    above and below and zero columns 0 and W+1.. 31; y1 zeroed at the
+    padding; conv2's taps as shifts of the flattened grid by 32 dy + dx;
+    block 0's projection accumulated with conv3 by concatenating K. Operands
+    are the rounded values, sums in fp32, the kernel's rounding points."""
+    dt, g = x.dtype, 32
+    n, h, w = x.shape[0], x.shape[1] // 2, x.shape[2] // 2
+
+    def to_grid(v):
+        out = v.new_zeros((n, h + 2, g, v.shape[-1]))
+        out[:, 1:h + 1, 1:w + 1] = v
+        return out.reshape(n, (h + 2) * g, -1)
+
+    mask = to_grid(torch.ones((n, h, w, 1)))
+    cur = x[:, ::2, ::2].float()                       # block 0's pixels
+    for blk in blocks:
+        xg = to_grid(cur)
+        c1, c2, c3 = blk["conv1"], blk["conv2"], blk["conv3"]
+        y1 = F.relu(xg @ c1.weight.float().reshape(128, -1).T + c1.bias)
+        y1 = (y1 * mask).to(dt).float()
+        yp = F.pad(y1, (0, 0, g + 1, g + 1))
+        acc = sum(yp[:, g + 1 + g * dy + dx:][:, :(h + 2) * g]
+                  @ c2.weight.float()[:, dy + 1, dx + 1].T
+                  for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+        y2 = F.relu(acc + c2.bias).to(dt).float()
+        a, w3, b3, res = y2, c3.weight.float().reshape(512, 128), c3.bias, xg
+        if "downsample" in blk:
+            ds = blk["downsample"]
+            a = torch.cat([y2, xg], -1)
+            w3 = torch.cat([w3, ds.weight.float().reshape(512, 256)], 1)
+            b3, res = b3 + ds.bias, 0.0
+        out = F.relu(a @ w3.T + b3 + res).to(dt)
+        cur = out.reshape(n, h + 2, g, 512)[:, 1:h + 1, 1:w + 1].float()
+    return cur.to(dt)
+
+
+def test_layer2_kernel_grid_matches_pallas(layer2_params):
+    """The kernel's padded-grid formulation against the Pallas kernel in
+    interpret mode at N = 2, bf16: max-rel < 2e-2 (tests/test_backbone.py)."""
+    jfolded, tfolded = layer2_params
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 56, 56, 256)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(jl2.layer2_fused(
+        xb, jl2.pack_layer2_params(jfolded["params"]), interpret=True),
+        np.float32)
+    got = _layer2_grid_model(
+        torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16),
+        tl2.pack_layer2_params(tfolded, torch.bfloat16)).float().numpy()
+    assert got.shape == want.shape == (2, 28, 28, 512)
+    assert np.abs(got - want).max() / np.abs(want).max() < 2e-2
+
+
+def test_layer2_kernel_grid_ragged_matches_plain(layer2_params):
+    """The same formulation at a ragged 8 x 6 output in f32 against
+    :func:`layer2_plain` (atol 2e-4, rtol 1e-3: f32 throughout)."""
+    _j, tfolded = layer2_params
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 12, 256)).astype(
+        np.float32))
+    blocks = tl2.pack_layer2_params(tfolded, torch.float32)
+    np.testing.assert_allclose(_layer2_grid_model(x, blocks).numpy(),
+                               tl2.layer2_plain(x, blocks).numpy(),
+                               atol=2e-4, rtol=1e-3)
