@@ -8,16 +8,29 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
   1. prints the card's name and power limit (nvidia-smi);
   2. holds each kernel against its plain PyTorch version on the card at
      small ragged shapes and at the flagship shapes (B=8 clips x T=48
-     frames of 112^2 crops, bf16 backbone), and times the kernel, the plain version and, where PyTorch
-     computes the same function, the library call (a yardstick only; the
-     port never calls it);
+     frames of 112^2 crops, bf16 backbone), the phase kernel also at the
+     streaming step's shapes (8 slots x 17 frames, all scales), at T = 2,
+     at a non-square plane, at planes that are only 8-byte aligned and at
+     the special values of atan2; times the kernel, the plain version
+     and, where PyTorch computes the same function, the library call (a
+     yardstick only; the port never calls it). A time is the median of 5
+     event-timed batches of 10 back-to-back calls, after 2 warm-up calls;
   3. drives ``Mimamo.predict_clips`` at the flagship shape with random
      weights from a seed, checks shape and finiteness, and checks that
-     every kernel was launched on that run (phase 3, stem 1, layer2 4 per
-     forward: one launch per bottleneck block);
-  4. runs the same weights on one clip x 8 frames on the CPU, in fp32,
+     every kernel was launched on that run (phase 1: all scales in one
+     launch; stem 1; layer2 4 per forward: one launch per bottleneck
+     block);
+  4. drives a ``StreamingSession`` at capacity 8 x chunk 16 (uint8): 8
+     streams fed 3 chunks equal ``predict_clips`` of the same clips; a
+     slot removed, added again and fed starts fresh; a slot left out of a
+     feed is not moved by it; checks the launch counts of one feed and
+     times the feed;
+  5. runs ``predict_from_crops`` over 120 frames (4 windows in one padded
+     batch of 8) and over 20 frames (padded to one clip, trimmed back)
+     against ``merge_window_predictions`` over direct ``predict_clips``;
+  6. runs the same weights on one clip x 8 frames on the CPU, in fp32,
      and compares the card's embeddings and outputs with it;
-  5. prints ``{"kernels": [...]}`` and, last, the device line.
+  7. prints ``{"kernels": [...]}`` and, last, the device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
 of the JAX package.
@@ -34,15 +47,19 @@ import time
 import numpy as np
 import torch
 
-from mimamo_tpu_torch import phase, pyramid, weights
+from mimamo_tpu_torch import StreamingSession, phase, pyramid, weights
 from mimamo_tpu_torch.config import BackboneSpec, MimamoConfig
 from mimamo_tpu_torch.kernels import (_build, layer2_kernel, phase_kernel,
                                       stem_kernel)
 from mimamo_tpu_torch.kernels.layer2_kernel import C_IN, OUT_W, WIDTH
-from mimamo_tpu_torch.preprocess import for_backbone, to_grayscale
+from mimamo_tpu_torch.preprocess import (for_backbone,
+                                         merge_window_predictions,
+                                         pad_short_clip, to_grayscale,
+                                         window_starts)
 from mimamo_tpu_torch.runner import Mimamo
 
 B, T, S = 8, 48, 112          # flagship step: 384 frames of 112^2 crops
+CAPACITY, CHUNK = 8, 16       # streaming step: 8 slots x 16 frames a feed
 SEED = 0
 # Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -54,6 +71,14 @@ BF16_REL_TOL = 2e-2           # max |kernel - plain| / max |plain|
 # several % of their (small, random-weight) range on the CPU alone.
 EMB_REL_TOL = 2e-2
 OUT_REL_TOL = 1.5e-1
+# Streamed chunks vs the whole clip on the card (max |d| / max |ref|): the
+# same kernels on the same frames; what may differ is the order in which
+# cuDNN and the GRU sum at 128 frames x 16 steps and at 384 x 48. Seen:
+# 8e-6 on an H100.
+STREAM_REL_TOL = 1e-4
+# A slot left out of a feed, and a batch of windows against the same
+# batch: the same shapes and lanes, so the same numbers.
+SAME_SHAPE_REL_TOL = 1e-6
 
 
 def card() -> str:
@@ -64,9 +89,12 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
-    """Median over ``iters`` runs of ``fn`` on the current stream, timed
-    with CUDA events after ``warmup`` runs."""
+def time_ms(fn, warmup: int = 2, iters: int = 5, batch: int = 10) -> float:
+    """Time of one run of ``fn`` on the current stream: the median over
+    ``iters`` batches of ``batch`` back-to-back runs between two CUDA
+    events, after ``warmup`` runs. Back to back, so that the card is not
+    idle while the host prepares a launch and a short kernel's time is
+    the card's, not the host's."""
     for _ in range(warmup):
         fn()
     times = []
@@ -74,15 +102,17 @@ def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
-def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    got, want = got.float(), want.float()
+def max_rel(got, want) -> float:
+    """max |got - want| / max |want| of two tensors or arrays."""
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-12)
             ).item()
 
@@ -105,38 +135,137 @@ def record(name, source, replaces, err, tol, ms, plain_ms, nbytes, flops,
     return rec
 
 
+def phase_bands(frames: torch.Tensor, cfg: MimamoConfig) -> list:
+    return list(pyramid.bands(
+        frames, cfg.pyramid, pyramid.band_masks(cfg.pyramid, frames.device)))
+
+
+def phase_errs(bands: list, cfg: MimamoConfig, what: str) -> dict:
+    """Max |kernel - plain| of one launch over all ``bands``, without and
+    with amplitude weighting; raises beyond PHASE_TOL."""
+    k, p = cfg.pyramid.orientations, cfg.phase.phase_size
+    b, t = bands[0].shape[:2]
+    errs = {}
+    for weighting in (False, True):
+        out = torch.empty((b, t - 1, len(bands) * k, p, p),
+                          device=bands[0].device)
+        phase_kernel.phase_diff_resize_scales(
+            bands, out, [s * k for s in range(len(bands))], weighting)
+        want = torch.cat([phase.phase_diff_resize(band, p, weighting)
+                          for band in bands], dim=2)
+        torch.cuda.synchronize()
+        errs[weighting] = (out - want).abs().max().item()
+        if not errs[weighting] <= PHASE_TOL:
+            raise AssertionError(f"phase kernel at {what} (weighting="
+                                 f"{weighting}): max |err| {errs[weighting]}"
+                                 f" > {PHASE_TOL}")
+    return errs
+
+
 def check_phase(frames: torch.Tensor, cfg: MimamoConfig) -> dict:
-    spec, p = cfg.pyramid, cfg.phase.phase_size
-    k = spec.orientations
-    masks = pyramid.band_masks(spec, frames.device)
-    bands = list(pyramid.bands(frames, spec, masks))
-    out = torch.empty((B, T - 1, spec.height * k, p, p),
-                      device=frames.device)
+    """The phase kernel at the flagship step: all scales in one launch
+    against the plain version, and its times."""
+    p, k = cfg.phase.phase_size, cfg.pyramid.orientations
+    bands = phase_bands(frames, cfg)
+    channels = [s * k for s in range(len(bands))]
+    out = torch.empty((B, T - 1, len(bands) * k, p, p), device=frames.device)
 
     def kernel(weighting=False):
-        for s, band in enumerate(bands):
-            phase_kernel.phase_diff_resize(band, out, s * k, weighting)
-        return out
+        return phase_kernel.phase_diff_resize_scales(bands, out, channels,
+                                                     weighting)
 
     def plain(weighting=False):
         return torch.cat([phase.phase_diff_resize(band, p, weighting)
                           for band in bands], dim=2)
 
-    errs = {}
-    for weighting in (False, True):
-        got = kernel(weighting).clone()
-        want = plain(weighting)
-        torch.cuda.synchronize()
-        errs[weighting] = (got - want).abs().max().item()
-        if not errs[weighting] <= PHASE_TOL:
-            raise AssertionError(f"phase kernel (weighting={weighting}) "
-                                 f"max |err| {errs[weighting]} > {PHASE_TOL}")
-    print(json.dumps({"phase_weighted_max_abs_err": errs[True]}))
+    errs = phase_errs(bands, cfg, "the flagship step")
+    print(json.dumps({"phase_weighted_max_abs_err": errs[True],
+                      "phase_weighted_ms": time_ms(lambda: kernel(True)),
+                      "phase_weighted_plain_ms":
+                      time_ms(lambda: plain(True), batch=2)}), flush=True)
     nbytes = sum(b.numel() * 8 for b in bands) + out.numel() * 4
     return record(
         "phase_diff_resize", "mimamo_tpu_torch/csrc/phase_diff_resize.cu",
         "mimamo_tpu/pallas/phase_kernel.py:112", errs[False], PHASE_TOL,
-        time_ms(kernel), time_ms(plain), nbytes, 0.0, None)
+        time_ms(kernel), time_ms(plain, batch=2), nbytes, 0.0, None)
+
+
+def check_phase_shapes(cfg: MimamoConfig, frames: torch.Tensor) -> None:
+    """The phase kernel away from the flagship step, against the plain
+    version (PHASE_TOL): the streaming step (8 slots x 17 frames of real
+    bands, all scales in one launch) with its bound and time; a single
+    pair (T = 2); a partial channel slice, whose neighbours must stay
+    untouched; a non-square plane; planes of 34 x 34 that start at 8 but
+    not 16 bytes; products on the axes and at signed zeros; a frame against
+    itself and an all-zero lane (a fresh slot and an unfed lane)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p, k = cfg.phase.phase_size, cfg.pyramid.orientations
+    errs = {}
+
+    def randn(shape):
+        return torch.randn(shape, dtype=torch.complex64, device="cuda",
+                           generator=gen)
+
+    bands = phase_bands(frames[:CAPACITY, :CHUNK + 1], cfg)
+    errs["stream_step"] = phase_errs(bands, cfg, "the streaming step")
+    out = torch.empty((CAPACITY, CHUNK, len(bands) * k, p, p), device="cuda")
+    nbytes = sum(b.numel() * 8 for b in bands) + out.numel() * 4
+    channels = [s * k for s in range(len(bands))]
+    print(json.dumps({
+        "phase_stream_step_ms": time_ms(
+            lambda: phase_kernel.phase_diff_resize_scales(
+                bands, out, channels, False)),
+        "phase_stream_step_plain_ms": time_ms(lambda: torch.cat(
+            [phase.phase_diff_resize(b, p, False) for b in bands], dim=2)),
+        "phase_stream_step_bound_ms": bound_ms(nbytes, 0.0)[0]}), flush=True)
+    errs["t2"] = phase_errs(phase_bands(frames[:CAPACITY, :2], cfg), cfg,
+                            "T = 2")
+    misaligned = randn(2 * 4 * 2 * 34 * 34 + 1)[1:].view(2, 4, 2, 34, 34)
+    if misaligned.data_ptr() % 16 != 8:
+        raise AssertionError("the 34 x 34 band should start 8 bytes off")
+    for name, band in (("partial_channels", randn((3, 6, 2, 32, 32))),
+                       ("non_square", randn((2, 5, 3, 20, 28))),
+                       ("misaligned_34", misaligned)):
+        kb = band.shape[2]
+        for weighting in (False, True):
+            out = torch.zeros((band.shape[0], band.shape[1] - 1, kb + 2, p,
+                               p), device="cuda")
+            phase_kernel.phase_diff_resize(band, out, 1, weighting)
+            want = phase.phase_diff_resize(band, p, weighting)
+            err = (out[:, :, 1:1 + kb] - want).abs().max().item()
+            errs[f"{name}_w{int(weighting)}"] = err
+            if not (err <= PHASE_TOL and not out[:, :, 0].any()
+                    and not out[:, :, -1].any()):
+                raise AssertionError(f"phase kernel at {name}: {errs}")
+    # prod = c * conj(1) = c over the axes, the wrap and signed zeros,
+    # resized 10 -> 10 (the identity)
+    vals = torch.tensor([0.0, -0.0, 1.0, -1.0, 1e-30, -1e-30, 3.0, -3.0,
+                         1e-20, 1e20], device="cuda")
+    re, im = torch.meshgrid(vals, vals, indexing="ij")
+    cur = torch.complex(re, im).reshape(1, 1, 1, 10, 10)
+    band = torch.cat([torch.ones_like(cur), cur], dim=1).contiguous()
+    out = torch.zeros((1, 1, 1, 10, 10), device="cuda")
+    phase_kernel.phase_diff_resize(band, out, 0, False)
+    want = phase.phase_diff_resize(band, 10, False)
+    errs["special_values"] = (out - want).abs().max().item()
+    flips = int((torch.signbit(out) != torch.signbit(want)).sum())
+    if not errs["special_values"] <= PHASE_TOL or flips:
+        raise AssertionError(f"phase kernel at special values: {errs}, "
+                             f"{flips} sign flips")
+    band = randn((2, 3, 2, 32, 32))
+    band[:, 1] = band[:, 0]
+    band[1] = 0
+    for weighting in (False, True):
+        out = torch.full((2, 2, 2, p, p), 7.0, device="cuda")
+        phase_kernel.phase_diff_resize(band, out, 0, weighting)
+        want = phase.phase_diff_resize(band, p, weighting)
+        err = (out - want).abs().max().item()
+        errs[f"self_pair_w{int(weighting)}"] = err
+        if not (err <= PHASE_TOL and out[0, 0].abs().max() <= 1e-6
+                and not out[1].any()):
+            raise AssertionError(f"phase kernel on a frame against itself "
+                                 f"or on zero lanes: {errs}")
+    print(json.dumps({"phase_shapes_err": errs}), flush=True)
 
 
 def check_stem(crops: torch.Tensor, model: Mimamo) -> dict:
@@ -231,25 +360,15 @@ def layer2_byte_floors(pixels: int) -> dict:
 
 
 def check_small_shapes(model: Mimamo) -> None:
-    """The kernels at shapes other than the flagship's, against their plain
-    versions: a partial channel slice of the phase output; a crop size with
-    an odd number of pooled rows and 5 crops at 112; layer2 at 8 x 6 output
+    """The stem and layer2 kernels at shapes other than the flagship's,
+    against their plain versions: a crop size with an odd number of pooled
+    rows and 5 crops at 112; the stem and layer2 at the streaming feed's
+    128 frames; layer2 at 8 x 6 output
     pixels (ragged width), at 9 x 31 (a partial 4-row tile, the widest
     output the kernel takes), and at 1 and 3 frames of 56 x 56 (frame
     counts that are no multiple of any per-CTA grouping)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {}
-    band = torch.randn((3, 6, 2, 32, 32), dtype=torch.complex64,
-                       device="cuda", generator=gen)
-    for weighting in (False, True):
-        out = torch.zeros((3, 5, 4, 48, 48), device="cuda")
-        phase_kernel.phase_diff_resize(band, out, 1, weighting)
-        want = phase.phase_diff_resize(band, 48, weighting)
-        errs[f"phase_w{int(weighting)}"] = (
-            out[:, :, 1:3] - want).abs().max().item()
-        if not (errs[f"phase_w{int(weighting)}"] <= PHASE_TOL
-                and not out[:, :, 0].any() and not out[:, :, 3].any()):
-            raise AssertionError(f"phase kernel at a small shape: {errs}")
     w2, bias = model._backbone_folded().stem
     crops = torch.rand((3, 34, 34, 3), device="cuda", generator=gen) * 255
     mean = model.config.backbone.mean_rgb
@@ -258,8 +377,14 @@ def check_small_shapes(model: Mimamo) -> None:
     crops = torch.rand((5, S, S, 3), device="cuda", generator=gen) * 255
     errs["stem_n5"] = max_rel(stem_kernel.stem_fused(crops, w2, bias, mean),
                               stem_kernel.stem_plain(crops, w2, bias, mean))
+    crops = torch.rand((CAPACITY * CHUNK, S, S, 3), device="cuda",
+                       generator=gen) * 255
+    errs["stem_n128"] = max_rel(
+        stem_kernel.stem_fused(crops, w2, bias, mean),
+        stem_kernel.stem_plain(crops, w2, bias, mean))
     blocks = model._backbone_folded().layer2
-    for name, shape in (("layer2_16x12", (2, 16, 12, 256)),
+    for name, shape in (("layer2_n128", (CAPACITY * CHUNK, 56, 56, 256)),
+                        ("layer2_16x12", (2, 16, 12, 256)),
                         ("layer2_18x62", (2, 18, 62, 256)),
                         ("layer2_n1", (1, 56, 56, 256)),
                         ("layer2_n3", (3, 56, 56, 256))):
@@ -268,15 +393,19 @@ def check_small_shapes(model: Mimamo) -> None:
         errs[name] = max_rel(layer2_kernel.layer2_fused(x, blocks),
                              layer2_kernel.layer2_plain(x, blocks))
     print(json.dumps({"small_shapes_err": errs}), flush=True)
-    if not all(err < BF16_REL_TOL for name, err in errs.items()
-               if not name.startswith("phase")):
+    if not all(err < BF16_REL_TOL for err in errs.values()):
         raise AssertionError(f"kernels at small shapes: {errs}")
 
 
-def stage_breakdown(model: Mimamo, clips: np.ndarray) -> dict:
-    """Device time (ms) of each stage of one flagship forward: the calls
-    ``Mimamo.forward`` makes, with CUDA events recorded between stages."""
+def stage_breakdown(model: Mimamo, clips: np.ndarray,
+                    context: torch.Tensor = None) -> dict:
+    """Device time (ms) of each stage of one forward over uint8 ``clips``
+    [B, T, S, S, 3]: the calls ``Mimamo.forward`` makes, with CUDA events
+    recorded between stages. With ``context`` ([B, 1, S, S, 3] on the card)
+    it is a streaming forward: the context frame is prepended for the micro
+    stream only, and the GRUs start from given carries."""
     cfg, folded = model.config, model._backbone_folded()
+    b, t = clips.shape[:2]
     marks = []
 
     def mark(name):
@@ -285,21 +414,28 @@ def stage_breakdown(model: Mimamo, clips: np.ndarray) -> dict:
         marks.append((name, event))
 
     with torch.no_grad():
+        carries = None
+        if context is not None:
+            carries = tuple(torch.zeros((b, cfg.temporal.gru_hidden),
+                                        device="cuda") for _ in range(2))
         mark("start")
-        crops = torch.from_numpy(clips).cuda().float()
+        crops = torch.from_numpy(clips).cuda()
+        if context is not None:
+            crops = torch.cat([context, crops], dim=1)
+        crops = crops.float()
         mark("h2d_cast")
         gray = to_grayscale(crops)
         mark("grayscale")
         k, p = cfg.pyramid.orientations, cfg.phase.phase_size
-        bands = list(pyramid.bands(
-            gray, cfg.pyramid, pyramid.band_masks(cfg.pyramid, gray.device)))
+        bands = phase_bands(gray, cfg)
         mark("fft_bands")
-        stacks = torch.empty((B, T - 1, cfg.num_phase, p, p),
+        stacks = torch.empty((b, crops.shape[1] - 1, cfg.num_phase, p, p),
                              device=gray.device)
-        for s, band in enumerate(bands):
-            phase_kernel.phase_diff_resize(band, stacks, s * k, False)
+        phase_kernel.phase_diff_resize_scales(
+            bands, stacks, [s * k for s in range(len(bands))], False)
         mark("phase_kernel")
-        stem = stem_kernel.stem_fused(crops.reshape(B * T, S, S, 3),
+        own = crops[:, 1:] if context is not None else crops
+        stem = stem_kernel.stem_fused(own.reshape(b * t, S, S, 3),
                                       *folded.stem, cfg.backbone.mean_rgb)
         mark("stem_kernel")
         x = folded._stage(stem.permute(0, 3, 1, 2), 1)
@@ -313,18 +449,147 @@ def stage_breakdown(model: Mimamo, clips: np.ndarray) -> dict:
         mark("layer4")
         emb = x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype).float()
         mark("pool5")
-        model.temporal(stacks, emb.reshape(B, T, -1))
+        model.temporal(stacks, emb.reshape(b, t, -1), carries)
         mark("temporal")
     torch.cuda.synchronize()
     return {name: prev.elapsed_time(event)
             for (_, prev), (name, event) in zip(marks, marks[1:])}
 
 
+def median_stages(runs: list) -> dict:
+    return {name: statistics.median(r[name] for r in runs)
+            for name in runs[0]}
+
+
 KERNELS = {"phase_diff_resize": phase_kernel.KERNEL,
            "stem_fused": stem_kernel.KERNEL,
            "layer2_fused": layer2_kernel.KERNEL}
-EXPECTED_LAUNCHES = {"phase_diff_resize": 3, "stem_fused": 1,
+# per forward, clip or streaming: the phase kernel takes all scales in one
+# launch, layer2 one launch per bottleneck block
+EXPECTED_LAUNCHES = {"phase_diff_resize": 1, "stem_fused": 1,
                      "layer2_fused": 4}
+
+
+def counted(fn):
+    """Run ``fn`` with the kernels' launch counts set to 0 just before, and
+    return (its result, the counts just after); raises unless they are
+    EXPECTED_LAUNCHES."""
+    for kern in KERNELS.values():
+        kern.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"kernel launches {launches} != "
+                             f"{EXPECTED_LAUNCHES}")
+    return result, launches
+
+
+def fill_session(model: Mimamo, clips: np.ndarray):
+    """A uint8 session with all slots claimed and fed ``clips`` chunk by
+    chunk; returns (session, outputs [CAPACITY, T, 2])."""
+    sess = StreamingSession(model, capacity=CAPACITY, chunk=CHUNK,
+                            dtype=np.uint8)
+    slots = [sess.add_stream() for _ in range(CAPACITY)]
+    outs = []
+    for start in range(0, clips.shape[1], CHUNK):
+        got = sess.feed({slot: clips[slot, start:start + CHUNK]
+                         for slot in slots})
+        outs.append(np.stack([got[slot] for slot in slots]))
+    return sess, np.concatenate(outs, axis=1)
+
+
+def check_streaming(model: Mimamo, clips: np.ndarray, line: str) -> dict:
+    """The streaming path at capacity 8 x chunk 16; returns the launch
+    counts of one feed."""
+    whole = model.predict_clips(clips).cpu().numpy()
+    sess, streamed = fill_session(model, clips)
+    if streamed.shape != (CAPACITY, T, 2) or not np.isfinite(streamed).all():
+        raise AssertionError(f"streamed outputs {streamed.shape}")
+    rel = max_rel(streamed, whole)
+    # a slot removed, added again and fed starts fresh; the slots left out
+    # of that feed are not moved by it
+    extra = np.random.default_rng(SEED + 1).integers(
+        0, 256, (CAPACITY, CHUNK, S, S, 3), dtype=np.uint8)
+    twin, _ = fill_session(model, clips)
+    undisturbed = twin.feed({slot: extra[slot] for slot in range(CAPACITY)})
+    sess.remove_stream(3)
+    if sess.add_stream() != 3 or sess.free_slots != 0:
+        raise AssertionError("the freed slot was not reused")
+    fed = {0: extra[0], 1: extra[1], 3: clips[3, :CHUNK]}
+    got = sess.feed(fed)
+    fresh_rel = max_rel(got[3], whole[3, :CHUNK])
+    later = sess.feed({slot: extra[slot] for slot in (2, 4, 5, 6, 7)})
+    unfed_rel = max(max_rel(later[slot], undisturbed[slot])
+                    for slot in later)
+    fed_rel = max(max_rel(got[slot], undisturbed[slot])
+                  for slot in (0, 1))
+    print(json.dumps({"stream_vs_clips_max_rel": rel,
+                      "fresh_slot_vs_clips_max_rel": fresh_rel,
+                      "unfed_slot_max_rel": unfed_rel,
+                      "fed_beside_fresh_max_rel": fed_rel,
+                      "tol": [STREAM_REL_TOL, SAME_SHAPE_REL_TOL]}),
+          flush=True)
+    if not (rel < STREAM_REL_TOL and fresh_rel < STREAM_REL_TOL
+            and unfed_rel <= SAME_SHAPE_REL_TOL
+            and fed_rel <= SAME_SHAPE_REL_TOL):
+        raise AssertionError("the streaming session disagrees with clip "
+                             "mode or with an undisturbed session")
+
+    feeds = [{slot: clips[slot, start:start + CHUNK]
+              for slot in range(CAPACITY)} for start in range(0, T, CHUNK)]
+    for i in range(2):
+        sess.feed(feeds[i])                              # warm-up
+    _, launches = counted(lambda: sess.feed(feeds[2]))
+    times = []
+    for i in range(10):
+        t = time.perf_counter()
+        sess.feed(feeds[i % len(feeds)])     # ends with the result's .cpu()
+        times.append(time.perf_counter() - t)
+    feed = statistics.median(times)
+    print(json.dumps({"stream_feed_ms": feed * 1e3,
+                      "frames_per_s": CAPACITY * CHUNK / feed,
+                      "feeds_ms": [x * 1e3 for x in times],
+                      "capacity": CAPACITY, "chunk": CHUNK, "card": line}),
+          flush=True)
+    context = torch.from_numpy(clips[:, :1]).cuda()
+    stages = median_stages([stage_breakdown(model, clips[:, :CHUNK], context)
+                            for _ in range(5)])
+    print(json.dumps({"stream_stage_ms": stages,
+                      "stream_stage_sum_ms": sum(stages.values()),
+                      "card": line}), flush=True)
+    return launches
+
+
+def check_from_crops(model: Mimamo, line: str) -> None:
+    """``predict_from_crops`` over 120 frames (windows at 0, 24, 48, 72 in
+    one batch of 8, padded by repeats) and over 20 frames (padded to one
+    clip, trimmed back), against the overlap average of direct
+    ``predict_clips`` calls on the same padded batches."""
+    cfg = model.config.clip
+    rng = np.random.default_rng(SEED + 2)
+    for frames in (120, 20):
+        crops = rng.integers(0, 256, (frames, S, S, 3), dtype=np.uint8)
+        got = model.predict_from_crops(crops)
+        padded = pad_short_clip(crops, cfg.clip_len)
+        starts = window_starts(padded.shape[0], cfg.clip_len, cfg.stride)
+        idx = starts[:, None] + np.arange(cfg.clip_len)[None, :]
+        idx = np.concatenate([idx, np.repeat(idx[-1:], 8 - len(idx), axis=0)])
+        direct = model.predict_clips(padded[idx])[:len(starts)].cpu().numpy()
+        want = merge_window_predictions(direct, starts,
+                                        padded.shape[0])[:frames]
+        rel = max_rel(got, want)
+        t = time.perf_counter()
+        model.predict_from_crops(crops)
+        ms = (time.perf_counter() - t) * 1e3
+        print(json.dumps({"predict_from_crops_frames": frames,
+                          "windows": len(starts), "max_rel": rel, "ms": ms,
+                          "card": line}), flush=True)
+        if (got.shape != (frames, 2) or got.dtype != np.float32
+                or not np.isfinite(got).all()
+                or not rel <= SAME_SHAPE_REL_TOL):
+            raise AssertionError(f"predict_from_crops over {frames} frames: "
+                                 f"{got.shape} {got.dtype}, max-rel {rel}")
 
 
 def main() -> int:
@@ -349,6 +614,7 @@ def main() -> int:
 
     with torch.no_grad():
         check_small_shapes(model)
+        check_phase_shapes(cfg, to_grayscale(crops))
         recs = [check_phase(to_grayscale(crops), cfg),
                 check_stem(crops.reshape(B * T, S, S, 3), model),
                 check_layer2(crops.reshape(B * T, S, S, 3), model)]
@@ -358,19 +624,10 @@ def main() -> int:
     # -- the main path -----------------------------------------------------
     model.predict_clips(clips)                           # warm-up
     torch.cuda.synchronize()
-    for kern in KERNELS.values():
-        kern.launches = 0
-    out = model.predict_clips(clips)
-    torch.cuda.synchronize()
-    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    out, launches = counted(lambda: model.predict_clips(clips))
     if tuple(out.shape) != (B, T, 2) or not torch.isfinite(out).all():
         raise AssertionError(f"predict_clips gave {tuple(out.shape)}, "
                              f"finite={bool(torch.isfinite(out).all())}")
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"kernel launches on the main path {launches}"
-                             f" != {EXPECTED_LAUNCHES}")
-    for rec in recs:
-        rec["launches"] = launches[rec["name"]]
     step_times = []
     for _ in range(5):
         t = time.perf_counter()
@@ -382,12 +639,17 @@ def main() -> int:
                       "step_ms": step * 1e3, "steps_ms":
                       [s * 1e3 for s in step_times], "card": line}),
           flush=True)
-    runs = [stage_breakdown(model, clips) for _ in range(5)]
-    stages = {name: statistics.median(r[name] for r in runs)
-              for name in runs[0]}
+    stages = median_stages([stage_breakdown(model, clips) for _ in range(3)])
     print(json.dumps({"stage_ms": stages,
                       "stage_sum_ms": sum(stages.values()),
                       "card": line}), flush=True)
+
+    # -- the streaming path and the windowed path --------------------------------
+    feed_launches = check_streaming(model, clips, line)
+    check_from_crops(model, line)
+    for rec in recs:
+        rec["launches"] = launches[rec["name"]]
+        rec["launches_stream_feed"] = feed_launches[rec["name"]]
 
     # -- the same weights on the CPU, one clip x 8 frames --------------------
     small = clips[:1, :8]

@@ -20,7 +20,7 @@ Conventions pinned for parity:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +107,16 @@ class TemporalSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class ClipSpec:
+    """Clip / window hyperparameters (48-frame clips at half overlap)."""
+
+    clip_len: int = 48
+    stride: int = 24            # sliding-window stride (clip_len // 2)
+    crop_size: int = 112        # aligned face-crop size
+    fps: Optional[float] = None  # metadata only
+
+
+@dataclasses.dataclass(frozen=True)
 class MimamoConfig:
     """Top-level config for the full pipeline."""
 
@@ -114,6 +124,7 @@ class MimamoConfig:
     phase: PhaseSpec = PhaseSpec()
     backbone: BackboneSpec = BackboneSpec()
     temporal: TemporalSpec = TemporalSpec()
+    clip: ClipSpec = ClipSpec()
 
     @property
     def num_phase(self) -> int:

@@ -1,4 +1,5 @@
-"""Crop preprocessing for the two streams (PyTorch).
+"""Crop preprocessing for the two streams, and the sliding-window helpers
+(PyTorch).
 
 Counterpart of ``to_grayscale``, ``upscale2x`` and ``for_backbone`` in
 ``mimamo_tpu/preprocess.py``: BT.601 luma for the micro stream, and the
@@ -7,10 +8,18 @@ crop, per-channel mean subtraction, no scaling) for the macro stream. On
 the runner's path the backbone input is never materialized: the stem
 kernel forms it on the fly (``kernels.stem_kernel``); ``for_backbone`` is
 the plain reference for it.
+
+``pad_short_clip``, ``window_starts``, ``sliding_windows`` and
+``merge_window_predictions`` are the window bookkeeping of
+``predict_from_crops`` (same file of the JAX package): index math and a
+[N, clip_len, 2] -> [T, 2] average, on the host in numpy.
 """
 
 from __future__ import annotations
 
+from typing import Tuple, Union
+
+import numpy as np
 import torch
 
 from .config import BackboneSpec
@@ -59,3 +68,56 @@ def for_backbone(crops_rgb: torch.Tensor, spec: BackboneSpec) -> torch.Tensor:
                         device=crops_rgb.device)
     x = upscale2x(crops_rgb.to(torch.float32) - mean)
     return x.flip(-1) if spec.channel_order == "bgr" else x
+
+
+def pad_short_clip(crops: Union[np.ndarray, torch.Tensor], clip_len: int):
+    """Pad a [T < clip_len, ...] crop sequence by repeating its last crop
+    (a static tail contributes ~zero phase differences); callers trim the
+    outputs back to the true length. Longer sequences pass through."""
+    t = crops.shape[0]
+    if t >= clip_len:
+        return crops
+    if isinstance(crops, np.ndarray):
+        return np.concatenate(
+            [crops, np.repeat(crops[-1:], clip_len - t, axis=0)])
+    return torch.cat(
+        [crops, crops[-1:].expand((clip_len - t,) + tuple(crops.shape[1:]))])
+
+
+def window_starts(t: int, clip_len: int, stride: int) -> np.ndarray:
+    """Start frames of the sliding windows over a T-frame sequence; the
+    last window is right-aligned so the tail is covered."""
+    if t < clip_len:
+        raise ValueError(f"sequence length {t} < clip_len {clip_len}")
+    starts = list(range(0, t - clip_len + 1, stride))
+    if starts[-1] != t - clip_len:
+        starts.append(t - clip_len)
+    return np.asarray(starts, np.int32)
+
+
+def sliding_windows(x: Union[np.ndarray, torch.Tensor], clip_len: int,
+                    stride: int) -> Tuple[Union[np.ndarray, torch.Tensor],
+                                          np.ndarray]:
+    """Slice [T, ...] into overlapping [N, clip_len, ...] windows; returns
+    (windows, starts), see :func:`window_starts`."""
+    starts = window_starts(x.shape[0], clip_len, stride)
+    idx = starts[:, None] + np.arange(clip_len)[None, :]
+    if isinstance(x, np.ndarray):
+        return x[idx], starts
+    return x[torch.from_numpy(idx).to(x.device, torch.long)], starts
+
+
+def merge_window_predictions(preds, starts: np.ndarray,
+                             total_len: int) -> np.ndarray:
+    """Overlap-average [N, clip_len, D] window outputs back to [T, D], on
+    the host (the arrays are tiny and every caller already holds them
+    there); accumulates in float64 and returns the input dtype."""
+    preds = np.asarray(preds)
+    _n, clip_len, d = preds.shape
+    idx = (np.asarray(starts)[:, None]
+           + np.arange(clip_len)[None, :]).reshape(-1)
+    acc = np.zeros((total_len, d), np.float64)
+    cnt = np.zeros((total_len, 1), np.float64)
+    np.add.at(acc, idx, preds.reshape(-1, d).astype(np.float64))
+    np.add.at(cnt, idx, 1.0)
+    return (acc / np.maximum(cnt, 1.0)).astype(preds.dtype)

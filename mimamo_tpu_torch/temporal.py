@@ -1,8 +1,10 @@
 """Two-stream temporal model (PyTorch): micro (phase CNN + GRU) and macro
 (ResNet feature GRU) streams fused into per-frame (valence, arousal).
 
-Counterpart of ``MicroCNN`` and ``TwoStreamRNN`` in
-``mimamo_tpu/temporal.py``, in clip mode (no carries). Parameter names are
+Counterpart of ``MicroCNN``, ``TwoStreamRNN`` and ``init_carries`` in
+``mimamo_tpu/temporal.py``: clip mode (both GRUs start from zeros) and
+streaming (the previous chunk's carries come in, the new ones go out).
+Parameter names are
 the canonical two-stream schema of docs/WEIGHTS.md (``gru_micro.*``,
 ``micro_cnn.conv1.weight``, ``macro_proj.*``, ...). The JAX package's GRU is
 a hand-rolled torch-convention cell (gate order r, z, n; reset gate applied
@@ -15,11 +17,16 @@ TF32 off so the convs and the GRU stay IEEE on the card.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .config import TemporalSpec
+
+
+Carries = Tuple[torch.Tensor, torch.Tensor]     # (h_micro, h_macro), [B, H]
 
 
 class MicroCNN(nn.Module):
@@ -61,23 +68,47 @@ class TwoStreamRNN(nn.Module):
         self.fusion = nn.Linear(2 * spec.gru_hidden, spec.fusion_hidden)
         self.head = nn.Linear(spec.fusion_hidden, spec.num_outputs)
 
-    def forward(self, phase_stacks: torch.Tensor, rgb_feats: torch.Tensor
-                ) -> torch.Tensor:
-        """phase_stacks [B, T-1, C, P, P] and rgb_feats [B, T, F] ->
-        [B, T, num_outputs]. Frame 0 has no predecessor, so its micro
-        embedding is zero."""
+    def forward(self, phase_stacks: torch.Tensor, rgb_feats: torch.Tensor,
+                carries: Optional[Carries] = None,
+                first_pair_invalid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Carries]:
+        """phase_stacks [B, T-1 | T, C, P, P] and rgb_feats [B, T, F] ->
+        ([B, T, num_outputs], new carries).
+
+        With T-1 pairs (clip mode) frame 0 has no predecessor and its micro
+        embedding is zero; with T pairs (streaming: the caller prepended the
+        previous chunk's last frame) every frame has one. ``carries`` are
+        the two GRUs' [B, H] hidden states from the previous chunk (zeros
+        when None). ``first_pair_invalid`` ([B] bool) zeroes step 0's micro
+        embedding of the rows it marks, so that a stream's first chunk
+        equals clip mode; it selects, so a non-finite embedding of a marked
+        row does not get through."""
         b, t = rgb_feats.shape[:2]
         tm1 = phase_stacks.shape[1]
-        if tm1 != t - 1:
-            raise ValueError(f"phase stacks T-1={tm1} vs frames T={t}")
         micro = self.micro_cnn(phase_stacks.reshape(
             (b * tm1,) + phase_stacks.shape[2:])).reshape(b, tm1, -1)
-        micro = F.pad(micro, (0, 0, 1, 0))
+        if tm1 == t - 1:
+            micro = F.pad(micro, (0, 0, 1, 0))
+        elif tm1 != t:
+            raise ValueError(f"phase stacks T-1={tm1} vs frames T={t}")
+        if first_pair_invalid is not None:
+            first = torch.where(first_pair_invalid[:, None],
+                                torch.zeros_like(micro[:, 0]), micro[:, 0])
+            micro = torch.cat([first[:, None], micro[:, 1:]], dim=1)
         macro = F.relu(self.macro_proj(rgb_feats))
-        ys_micro, _ = self.gru_micro(micro)
-        ys_macro, _ = self.gru_macro(macro)
+        # nn.GRU wants [layers = 1, B, H]
+        h_micro, h_macro = (None, None) if carries is None else (
+            c[None].contiguous() for c in carries)
+        ys_micro, h_micro = self.gru_micro(micro, h_micro)
+        ys_macro, h_macro = self.gru_macro(macro, h_macro)
         fused = F.relu(self.fusion(torch.cat([ys_micro, ys_macro], dim=-1)))
         out = self.head(fused)
         if self.spec.output_activation == "tanh":
             out = torch.tanh(out)
-        return out
+        return out, (h_micro[0], h_macro[0])
+
+
+def init_carries(spec: TemporalSpec, batch: int, device=None) -> Carries:
+    """Zero carries of both GRUs, [B, H] float32 each."""
+    return (torch.zeros((batch, spec.gru_hidden), device=device),
+            torch.zeros((batch, spec.gru_hidden), device=device))

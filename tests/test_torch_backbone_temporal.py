@@ -127,7 +127,8 @@ def test_two_stream_rnn_matches_jax_f32(activation):
         f).eval()
     tmodel.load_state_dict(weights.temporal_from_jax(variables))
     with torch.no_grad():
-        got = tmodel(torch.from_numpy(phases), torch.from_numpy(feats))
+        got, _carries = tmodel(torch.from_numpy(phases),
+                               torch.from_numpy(feats))
     assert got.shape == (b, t, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)

@@ -20,7 +20,9 @@ MODULES = (
     "mimamo_tpu_torch.backbone",
     "mimamo_tpu_torch.temporal",
     "mimamo_tpu_torch.runner",
+    "mimamo_tpu_torch.streaming",
     "mimamo_tpu_torch.weights",
+    "mimamo_tpu_torch.bench_phase",
     "mimamo_tpu_torch.kernels._build",
     "mimamo_tpu_torch.kernels.phase_kernel",
     "mimamo_tpu_torch.kernels.stem_kernel",
@@ -61,6 +63,28 @@ def test_default_device_without_cuda_raises(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Mimamo()
+
+
+def _small_config():
+    from mimamo_tpu_torch.config import (ClipSpec, MimamoConfig, PhaseSpec,
+                                         PyramidSpec)
+    return MimamoConfig(pyramid=PyramidSpec(input_size=(32, 32)),
+                        phase=PhaseSpec(phase_size=16),
+                        clip=ClipSpec(crop_size=32))
+
+
+def test_streaming_session_without_cuda_raises(monkeypatch):
+    """A session lives on its model's device, and a model is built on the
+    card unless the CPU is asked for: without a card that raises, and a
+    model asked onto the CPU gives a session whose state is on the CPU."""
+    from mimamo_tpu_torch import Mimamo, StreamingSession
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingSession(Mimamo(_small_config()))
+    sess = StreamingSession(Mimamo(_small_config(), device="cpu"),
+                            capacity=2, chunk=4)
+    assert sess._context.device.type == "cpu"
+    assert all(c.device.type == "cpu" for c in sess._gru)
 
 
 def test_explicit_cpu_device():

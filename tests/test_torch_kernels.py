@@ -83,6 +83,90 @@ def test_phase_wrapper_rejects_bad_shapes():
                                False)
 
 
+def _strip_formulation(band, p, weighting, strip_bytes):
+    """The CUDA kernel's arithmetic in plain torch: per strip of
+    ``strip_plan``, dphi (times |prod| with weighting) once per source
+    pixel of the rows the strip holds, output rows from two row taps and
+    two column taps of ``resize_taps`` relative to the strip's first row,
+    the sum of |prod| over the rows the strip owns, and at the end the
+    plane's un-normalised rows divided by mean|prod| + 1e-6."""
+    from mimamo_tpu_torch import phase as tphase
+    b, t, k, h, w = band.shape
+    row_idx, row_wts = map(torch.from_numpy, tphase.resize_taps(h, p))
+    col_idx, col_wts = map(torch.from_numpy, tphase.resize_taps(w, p))
+    row_idx, col_idx = row_idx.long(), col_idx.long()
+    plan = tphk.strip_plan(h, w, p, weighting, strip_bytes)
+    out = torch.full((b, t - 1, k, p, p), float("nan"))
+    total = torch.zeros((b, t - 1, k))
+    owned = torch.zeros(h, dtype=torch.int32)
+    for p0, p1, r0, nr, own0, own1 in plan.tolist():
+        cur, prev = band[:, 1:, :, r0:r0 + nr], band[:, :-1, :, r0:r0 + nr]
+        re = cur.real * prev.real + cur.imag * prev.imag
+        im = cur.imag * prev.real - cur.real * prev.imag
+        d = torch.atan2(im, re)
+        if weighting:
+            amp = torch.sqrt(re * re + im * im)
+            d = d * amp
+            assert r0 <= own0 and own1 <= r0 + nr
+            total += amp[..., own0 - r0:own1 - r0, :].sum(dim=(-2, -1))
+            owned[own0:own1] += 1
+        rows = row_idx[p0:p1] - r0                       # [n, 2]
+        assert rows.min() >= 0 and rows.max() < nr
+        cols = (d[..., col_idx[:, 0]] * col_wts[:, 0]
+                + d[..., col_idx[:, 1]] * col_wts[:, 1])  # [..., nr, P]
+        out[..., p0:p1, :] = (
+            cols[..., rows[:, 0], :] * row_wts[p0:p1, 0, None]
+            + cols[..., rows[:, 1], :] * row_wts[p0:p1, 1, None])
+    if weighting:
+        assert (owned == 1).all()                # the owned rows partition
+        out = out / (total / (h * w) + 1e-6)[..., None, None]
+    return out
+
+
+@pytest.mark.parametrize("weighting", [False, True])
+@pytest.mark.parametrize("shape,strip_bytes", [
+    ((2, 4, 2, 32, 32), 2048),      # 4+ strips a plane
+    ((1, 2, 3, 20, 28), 1024),      # non-square, T = 2: one pair
+    ((1, 3, 2, 112, 112), 8192),    # 112 -> 48: rows between taps unused
+    ((1, 3, 1, 12, 12), 8192),      # 12 -> 48 upsampling, one strip
+])
+def test_phase_kernel_strip_formulation_matches_pallas(shape, strip_bytes,
+                                                       weighting):
+    """The strip formulation the CUDA kernel computes (dphi per source
+    pixel, then 2-tap rows and columns within the strip's row span, the
+    weighting mean from per-strip partial sums) vs the Pallas kernel in
+    interpret mode, atol 1e-4 rad."""
+    rng = np.random.default_rng(7)
+    band = _complex(rng, shape)
+    want = np.asarray(jphk.phase_diff_resize_blocked(
+        jnp.asarray(band[:, 1:]), jnp.asarray(band[:, :-1]), phase_size=48,
+        block=8, interpret=True, amplitude_weighting=weighting))
+    got = _strip_formulation(torch.from_numpy(band), 48, weighting,
+                             strip_bytes)
+    assert len(tphk.strip_plan(*shape[-2:], 48, weighting, strip_bytes)) >= (
+        1 if shape[-1] == 12 else 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("h,w", [(112, 112), (56, 56), (28, 28), (34, 34),
+                                 (20, 28), (7, 5)])
+@pytest.mark.parametrize("weighting", [False, True])
+def test_phase_strip_plan_covers_rows_within_budget(h, w, weighting):
+    """Every output row lies in exactly one strip, a strip holds both taps
+    of each of its rows, and without weighting no strip of more than one
+    row exceeds the byte budget."""
+    from mimamo_tpu_torch import phase as tphase
+    plan = tphk.strip_plan(h, w, 48, weighting)
+    idx, _ = tphase.resize_taps(h, 48)
+    assert plan[0, 0] == 0 and plan[-1, 1] == 48
+    assert (plan[1:, 0] == plan[:-1, 1]).all()
+    for p0, p1, r0, nr, own0, own1 in plan.tolist():
+        assert r0 <= idx[p0:p1].min() and idx[p0:p1].max() < r0 + nr <= h
+        assert weighting or p1 - p0 == 1 or nr * w * 8 <= tphk.STRIP_BYTES
+    assert plan[0, 4] == 0 and plan[-1, 5] == h
+    assert (plan[1:, 4] == plan[:-1, 5]).all()
+
+
 # -- stem ------------------------------------------------------------------
 
 def _stem_inputs():

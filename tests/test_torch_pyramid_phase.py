@@ -114,3 +114,46 @@ def test_grayscale_and_upscale_match_jax():
     np.testing.assert_allclose(
         tpre.upscale2x(torch.from_numpy(x)).numpy(),
         np.asarray(jpre.upscale2x(jnp.asarray(x))), atol=1e-4, rtol=0)
+
+
+# -- sliding-window helpers ---------------------------------------------------
+
+@pytest.mark.parametrize("t,clip_len,stride", [
+    (120, 48, 24), (48, 48, 24), (49, 48, 24), (9, 4, 2), (10, 4, 3),
+    (7, 7, 1)])
+def test_window_helpers_equal_jax(t, clip_len, stride):
+    """Integer starts, gathered windows and the float64 overlap average
+    are exactly the JAX package's."""
+    starts = tpre.window_starts(t, clip_len, stride)
+    want_starts = jpre.window_starts(t, clip_len, stride)
+    assert starts.dtype == want_starts.dtype
+    np.testing.assert_array_equal(starts, want_starts)
+    rng = np.random.default_rng(t)
+    x = rng.standard_normal((t, 3, 2)).astype(np.float32)
+    want_win, _ = jpre.sliding_windows(jnp.asarray(x), clip_len, stride)
+    for arr in (x, torch.from_numpy(x)):
+        win, st = tpre.sliding_windows(arr, clip_len, stride)
+        np.testing.assert_array_equal(st, want_starts)
+        np.testing.assert_array_equal(np.asarray(win), np.asarray(want_win))
+    preds = rng.standard_normal((len(starts), clip_len, 2)).astype(
+        np.float32)
+    got = tpre.merge_window_predictions(preds, starts, t)
+    want = jpre.merge_window_predictions(preds, want_starts, t)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_window_starts_rejects_short_sequence():
+    with pytest.raises(ValueError, match="clip_len"):
+        tpre.window_starts(3, 4, 2)
+
+
+@pytest.mark.parametrize("t", [1, 3, 4, 6])
+def test_pad_short_clip_equals_jax(t):
+    x = np.random.default_rng(t).integers(0, 256, (t, 5, 5, 3),
+                                          dtype=np.uint8)
+    want = np.asarray(jpre.pad_short_clip(x, 4))
+    np.testing.assert_array_equal(tpre.pad_short_clip(x, 4), want)
+    got = tpre.pad_short_clip(torch.from_numpy(x), 4)
+    assert isinstance(got, torch.Tensor)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -1,6 +1,6 @@
 """The slice as a whole: port ``Mimamo(cfg, device="cpu").predict_clips``
-vs JAX ``Mimamo(cfg).predict_clips`` with the same weights
-(``weights.from_jax_variables``) and the same uint8 clips."""
+and ``predict_from_crops`` vs the JAX ``Mimamo(cfg)`` with the same
+weights (``weights.from_jax_variables``) and the same uint8 clips."""
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +27,8 @@ def _configs(dtype):
     tcfg = tc.MimamoConfig(
         pyramid=tc.PyramidSpec(height=2, orientations=2, input_size=(S, S)),
         phase=tc.PhaseSpec(phase_size=16),
-        backbone=tc.BackboneSpec(input_size=2 * S, dtype=dtype))
+        backbone=tc.BackboneSpec(input_size=2 * S, dtype=dtype),
+        clip=tc.ClipSpec(clip_len=T, stride=2, crop_size=S))
     return jcfg, tcfg
 
 
@@ -48,6 +49,7 @@ def case():
                                                  jnp.asarray(clips)))
         ref[dtype + "_emb"] = np.asarray(jm.embed_frames(
             variables, jnp.asarray(clips, jnp.float32)))
+    ref["variables"] = variables
     return clips, weights.from_jax_variables(variables), ref
 
 
@@ -111,3 +113,35 @@ def test_predict_clips_rejects_bad_shapes(case):
     for shape in [(B, T, S, S), (B, T, S + 2, S + 2, 3), (B, 1, S, S, 3)]:
         with pytest.raises(ValueError):
             model.predict_clips(np.zeros(shape, np.uint8))
+
+
+@pytest.mark.parametrize("frames", [9, 3, 4])
+def test_predict_from_crops_matches_jax(case, frames):
+    """Windows of 4 at stride 2 in batches of 3, f32, atol 1e-5 vs the JAX
+    ``predict_from_crops``: 9 frames (4 windows, the last right-aligned, the
+    second batch padded by repeats), 3 frames (padded to one clip and
+    trimmed back) and exactly one clip."""
+    _clips, state, ref = case
+    crops = np.random.default_rng(frames).integers(
+        0, 256, (frames, S, S, 3), dtype=np.uint8)
+    want = JaxMimamo(_configs("float32")[0]).predict_from_crops(
+        ref["variables"], crops, batch_clips=3)
+    model = _port("float32", state)
+    got = model.predict_from_crops(crops, batch_clips=3)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    assert got.shape == (frames, 2)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
+    same = model.predict_from_crops(torch.from_numpy(crops), batch_clips=3)
+    np.testing.assert_array_equal(same, got)
+
+
+def test_predict_from_crops_t_real_trims(case):
+    """``t_real`` below one clip trims the series: the caller padded the
+    short video to ``clip_len`` itself."""
+    _clips, state, _ref = case
+    model = _port("float32", state)
+    crops = np.random.default_rng(1).integers(0, 256, (T, S, S, 3),
+                                              dtype=np.uint8)
+    full = model.predict_from_crops(crops, batch_clips=2)
+    np.testing.assert_array_equal(
+        model.predict_from_crops(crops, t_real=3, batch_clips=2), full[:3])
