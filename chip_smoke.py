@@ -27,7 +27,8 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      times the feed;
   5. runs ``predict_from_crops`` over 120 frames (4 windows in one padded
      batch of 8) and over 20 frames (padded to one clip, trimmed back)
-     against ``merge_window_predictions`` over direct ``predict_clips``;
+     against ``merge_window_predictions`` over direct ``predict_clips``,
+     with the launch counts of one call;
   6. runs the same weights on one clip x 8 frames on the CPU, in fp32,
      and compares the card's embeddings and outputs with it;
   7. prints ``{"kernels": [...]}`` and, last, the device line.
@@ -63,7 +64,8 @@ CAPACITY, CHUNK = 8, 16       # streaming step: 8 slots x 16 frames a feed
 SEED = 0
 # Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_BF16_FLOP_PER_S = 989e12     # tensor cores, dense
+PEAK_FP32_FLOP_PER_S = 67e12      # outside the tensor cores
 PHASE_TOL = 1e-4              # max |kernel - plain|, radians
 BF16_REL_TOL = 2e-2           # max |kernel - plain| / max |plain|
 # Card (bf16) vs CPU (fp32) on one 8-frame clip: bf16 rounding of the
@@ -117,16 +119,20 @@ def max_rel(got, want) -> float:
             ).item()
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float,
+             peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S):
+    """The least time (ms) the card could take: the larger of the bytes
+    over its memory rate and the operations over its peak rate for their
+    type; and which of the two it is."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flop_per_s * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def record(name, source, replaces, err, tol, ms, plain_ms, nbytes, flops,
-           library_ms):
-    bound, bound_by = bound_ms(nbytes, flops)
+           library_ms, peak_flop_per_s=PEAK_BF16_FLOP_PER_S):
+    bound, bound_by = bound_ms(nbytes, flops, peak_flop_per_s)
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": None, "max_abs_err": err,
            "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -138,6 +144,17 @@ def record(name, source, replaces, err, tol, ms, plain_ms, nbytes, flops,
 def phase_bands(frames: torch.Tensor, cfg: MimamoConfig) -> list:
     return list(pyramid.bands(
         frames, cfg.pyramid, pyramid.band_masks(cfg.pyramid, frames.device)))
+
+
+def phase_work(bands: list, out: torch.Tensor):
+    """Bytes the phase kernel must move (every complex64 band value read
+    once, every output written once) and its fp32 operations: per source
+    pixel of a pair 6 for the complex product and 24 for the angle (a
+    division, the octant fold, an 8-term polynomial), per output pixel 9
+    for the 2 x 2 taps."""
+    nbytes = sum(b.numel() * 8 for b in bands) + out.numel() * 4
+    pairs = sum(b.numel() // b.shape[1] * (b.shape[1] - 1) for b in bands)
+    return nbytes, 30.0 * pairs + 9.0 * out.numel()
 
 
 def phase_errs(bands: list, cfg: MimamoConfig, what: str) -> dict:
@@ -183,11 +200,12 @@ def check_phase(frames: torch.Tensor, cfg: MimamoConfig) -> dict:
                       "phase_weighted_ms": time_ms(lambda: kernel(True)),
                       "phase_weighted_plain_ms":
                       time_ms(lambda: plain(True), batch=2)}), flush=True)
-    nbytes = sum(b.numel() * 8 for b in bands) + out.numel() * 4
+    nbytes, flops = phase_work(bands, out)
     return record(
         "phase_diff_resize", "mimamo_tpu_torch/csrc/phase_diff_resize.cu",
         "mimamo_tpu/pallas/phase_kernel.py:112", errs[False], PHASE_TOL,
-        time_ms(kernel), time_ms(plain, batch=2), nbytes, 0.0, None)
+        time_ms(kernel), time_ms(plain, batch=2), nbytes, flops, None,
+        PEAK_FP32_FLOP_PER_S)
 
 
 def check_phase_shapes(cfg: MimamoConfig, frames: torch.Tensor) -> None:
@@ -195,9 +213,11 @@ def check_phase_shapes(cfg: MimamoConfig, frames: torch.Tensor) -> None:
     version (PHASE_TOL): the streaming step (8 slots x 17 frames of real
     bands, all scales in one launch) with its bound and time; a single
     pair (T = 2); a partial channel slice, whose neighbours must stay
-    untouched; a non-square plane; planes of 34 x 34 that start at 8 but
-    not 16 bytes; products on the axes and at signed zeros; a frame against
-    itself and an all-zero lane (a fresh slot and an unfed lane)."""
+    untouched; a non-square plane; planes of 7 x 5, an odd number of
+    values, so that every other plane starts at 8 but not 16 bytes, and
+    planes of 34 x 34 that all do; products on the axes and at signed
+    zeros; a frame against itself and an all-zero lane (a fresh slot and
+    an unfed lane)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     p, k = cfg.phase.phase_size, cfg.pyramid.orientations
     errs = {}
@@ -209,7 +229,6 @@ def check_phase_shapes(cfg: MimamoConfig, frames: torch.Tensor) -> None:
     bands = phase_bands(frames[:CAPACITY, :CHUNK + 1], cfg)
     errs["stream_step"] = phase_errs(bands, cfg, "the streaming step")
     out = torch.empty((CAPACITY, CHUNK, len(bands) * k, p, p), device="cuda")
-    nbytes = sum(b.numel() * 8 for b in bands) + out.numel() * 4
     channels = [s * k for s in range(len(bands))]
     print(json.dumps({
         "phase_stream_step_ms": time_ms(
@@ -217,7 +236,8 @@ def check_phase_shapes(cfg: MimamoConfig, frames: torch.Tensor) -> None:
                 bands, out, channels, False)),
         "phase_stream_step_plain_ms": time_ms(lambda: torch.cat(
             [phase.phase_diff_resize(b, p, False) for b in bands], dim=2)),
-        "phase_stream_step_bound_ms": bound_ms(nbytes, 0.0)[0]}), flush=True)
+        "phase_stream_step_bound_ms": bound_ms(
+            *phase_work(bands, out), PEAK_FP32_FLOP_PER_S)[0]}), flush=True)
     errs["t2"] = phase_errs(phase_bands(frames[:CAPACITY, :2], cfg), cfg,
                             "T = 2")
     misaligned = randn(2 * 4 * 2 * 34 * 34 + 1)[1:].view(2, 4, 2, 34, 34)
@@ -225,6 +245,7 @@ def check_phase_shapes(cfg: MimamoConfig, frames: torch.Tensor) -> None:
         raise AssertionError("the 34 x 34 band should start 8 bytes off")
     for name, band in (("partial_channels", randn((3, 6, 2, 32, 32))),
                        ("non_square", randn((2, 5, 3, 20, 28))),
+                       ("odd_7x5", randn((2, 4, 3, 7, 5))),
                        ("misaligned_34", misaligned)):
         kb = band.shape[2]
         for weighting in (False, True):
@@ -561,16 +582,17 @@ def check_streaming(model: Mimamo, clips: np.ndarray, line: str) -> dict:
     return launches
 
 
-def check_from_crops(model: Mimamo, line: str) -> None:
+def check_from_crops(model: Mimamo, line: str) -> dict:
     """``predict_from_crops`` over 120 frames (windows at 0, 24, 48, 72 in
     one batch of 8, padded by repeats) and over 20 frames (padded to one
     clip, trimmed back), against the overlap average of direct
-    ``predict_clips`` calls on the same padded batches."""
+    ``predict_clips`` calls on the same padded batches; returns the launch
+    counts of one call (one batch, so one forward)."""
     cfg = model.config.clip
     rng = np.random.default_rng(SEED + 2)
     for frames in (120, 20):
         crops = rng.integers(0, 256, (frames, S, S, 3), dtype=np.uint8)
-        got = model.predict_from_crops(crops)
+        got, launches = counted(lambda: model.predict_from_crops(crops))
         padded = pad_short_clip(crops, cfg.clip_len)
         starts = window_starts(padded.shape[0], cfg.clip_len, cfg.stride)
         idx = starts[:, None] + np.arange(cfg.clip_len)[None, :]
@@ -590,6 +612,7 @@ def check_from_crops(model: Mimamo, line: str) -> None:
                 or not rel <= SAME_SHAPE_REL_TOL):
             raise AssertionError(f"predict_from_crops over {frames} frames: "
                                  f"{got.shape} {got.dtype}, max-rel {rel}")
+    return launches
 
 
 def main() -> int:
@@ -646,10 +669,11 @@ def main() -> int:
 
     # -- the streaming path and the windowed path --------------------------------
     feed_launches = check_streaming(model, clips, line)
-    check_from_crops(model, line)
+    crops_launches = check_from_crops(model, line)
     for rec in recs:
         rec["launches"] = launches[rec["name"]]
         rec["launches_stream_feed"] = feed_launches[rec["name"]]
+        rec["launches_from_crops"] = crops_launches[rec["name"]]
 
     # -- the same weights on the CPU, one clip x 8 frames --------------------
     small = clips[:1, :8]

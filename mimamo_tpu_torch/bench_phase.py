@@ -1,6 +1,6 @@
 """Time the phase kernel of a checkout on the card.
 
-    python3 mimamo_tpu_torch/bench_phase.py [ROOT]
+    python3 mimamo_tpu_torch/bench_phase.py [ROOT] [--sweep]
 
 ROOT is the root of the checkout whose ``mimamo_tpu_torch`` is timed (this
 one when left out), so two revisions of the kernel can be timed in one run
@@ -12,6 +12,11 @@ seeded frames at the clip step (8 x 48 frames) and the streaming step
 version. A time is the median of 9 event-timed batches of 20 back-to-back
 forwards after 5 warm-ups. Prints the card's name and power limit, then one
 JSON line per shape. Needs one CUDA card.
+
+``--sweep`` repeats that over a grid of the wrapper's two tuning constants
+(``STRIP_BYTES``: the bytes of a frame a strip holds; ``TARGET_BLOCKS``: the
+grid size the frames are cut into runs for), one JSON line per shape and
+setting, for a revision whose wrapper has them.
 """
 
 from __future__ import annotations
@@ -22,8 +27,29 @@ import subprocess
 import sys
 
 
+SWEEP_STRIP_BYTES = (4096, 8192, 12288, 16384)
+SWEEP_TARGET_BLOCKS = (528, 2112, 8448, 33792)
+
+
+def time_ms(torch, fn) -> float:
+    """Median over 9 event-timed batches of 20 back-to-back runs of ``fn``."""
+    times = []
+    for _ in range(9):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 20)
+    return statistics.median(times)
+
+
 def main() -> int:
-    sys.path.insert(0, sys.argv[1] if len(sys.argv) > 1 else ".")
+    args = [a for a in sys.argv[1:] if a != "--sweep"]
+    sweep = len(args) < len(sys.argv) - 1
+    sys.path.insert(0, args[0] if args else ".")
     import torch
     from mimamo_tpu_torch import phase, pyramid
     from mimamo_tpu_torch.config import MimamoConfig
@@ -40,6 +66,8 @@ def main() -> int:
     k, p = cfg.pyramid.orientations, cfg.phase.phase_size
     gen = torch.Generator(device="cuda").manual_seed(0)
     one_launch = hasattr(phase_kernel, "phase_diff_resize_scales")
+    settings = [(None, None)] if not sweep else [
+        (sb, tb) for sb in SWEEP_STRIP_BYTES for tb in SWEEP_TARGET_BLOCKS]
     for b, t in ((8, 48), (8, 17)):
         frames = torch.rand((b, t, 112, 112), device="cuda",
                             generator=gen) * 255
@@ -58,26 +86,25 @@ def main() -> int:
                     phase_kernel.phase_diff_resize(band, out, channel,
                                                    weighting)
 
-        rec = {"B": b, "T": t, "launches": 1 if one_launch else len(bands)}
-        for weighting in (False, True):
-            for _ in range(5):
-                forward(weighting)
-            want = torch.cat([phase.phase_diff_resize(x, p, weighting)
-                              for x in bands], dim=2)
-            rec[f"max_abs_err_w{int(weighting)}"] = (
-                out - want).abs().max().item()
-            times = []
-            for _ in range(9):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(20):
+        for strip_bytes, target_blocks in settings:
+            rec = {"B": b, "T": t,
+                   "launches": 1 if one_launch else len(bands)}
+            if sweep:
+                phase_kernel.STRIP_BYTES = strip_bytes
+                phase_kernel.TARGET_BLOCKS = target_blocks
+                phase_kernel._launch_plan.cache_clear()
+                rec.update(strip_bytes=strip_bytes,
+                           target_blocks=target_blocks)
+            for weighting in (False, True):
+                for _ in range(5):
                     forward(weighting)
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end) / 20)
-            rec[f"ms_w{int(weighting)}"] = statistics.median(times)
-        print(json.dumps(rec), flush=True)
+                want = torch.cat([phase.phase_diff_resize(x, p, weighting)
+                                  for x in bands], dim=2)
+                rec[f"max_abs_err_w{int(weighting)}"] = (
+                    out - want).abs().max().item()
+                rec[f"ms_w{int(weighting)}"] = time_ms(
+                    torch, lambda: forward(weighting))
+            print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -49,7 +49,10 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMinBlocks = 8;       // per SM: caps the kernel at 64 registers
+// Blocks per SM the register allocation leaves room for: what 8 KB strips
+// let an SM hold in shared memory (7 x 29 KB). That caps the kernel at 72
+// registers, which it fits without a spill; at 8 (64 registers) it spills.
+constexpr int kMinBlocks = 7;
 constexpr int kMaxScales = 8;
 constexpr int kAhead = 1;           // frames whose copies are in flight
 constexpr int kBufs = kAhead + 2;   // those, prev and cur
@@ -73,7 +76,7 @@ struct Params {
   float* partial;                   // [n_scales, B, T-1, K, ns_max]
   int* count;                       // [n_scales, B, T-1, K], zero on entry
   int n_scales, B, T, K, P, C;
-  int run_len, n_runs;              // pairs per block; runs per plane strip
+  int run_len;                      // pairs a block walks
   int weighting;
   int buf_elems;                    // capacity of a strip buffer, 0 mod 4
   int ns_max;

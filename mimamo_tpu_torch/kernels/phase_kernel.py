@@ -34,8 +34,8 @@ MAX_P = 2047                  # the kernel indexes P * P outputs in fp32
 # such buffers and the strip's fp32 dphi make a block's shared memory), and
 # a plane's frames are cut into runs until the grid has about this many
 # blocks: short runs even out the load over the SMs, at the price of one
-# frame read again per run. Both were swept on an H100 (4-16 KB, 528-33792
-# blocks) at the clip step and the streaming step.
+# frame read again per run. ``bench_phase.py --sweep`` times the kernel over
+# a grid of both at the clip step and the streaming step.
 STRIP_BYTES = 8 * 1024
 TARGET_BLOCKS = 8448
 
@@ -53,7 +53,7 @@ class _Params(ctypes.Structure):
                 + [(name, ctypes.c_void_p) for name in
                    ("out", "partial", "count")]
                 + [(name, ctypes.c_int) for name in
-                   ("n_scales", "B", "T", "K", "P", "C", "run_len", "n_runs",
+                   ("n_scales", "B", "T", "K", "P", "C", "run_len",
                     "weighting", "buf_elems", "ns_max", "tab_rows")])
 
 
@@ -188,7 +188,7 @@ def _launch_plan(sizes: Tuple[Tuple[int, int], ...],
     tables: List[torch.Tensor] = []
     units = 0
     for s, ((h, w), channel) in enumerate(zip(sizes, channels)):
-        plan = strip_plan(h, w, p, weighting)
+        plan = strip_plan(h, w, p, weighting, STRIP_BYTES)
         elems = int(plan[:, 3].max()) * w
         taps = _taps(h, p, device) + _taps(w, p, device)
         tables += [torch.from_numpy(plan).to(device), *taps]
@@ -211,11 +211,11 @@ def _launch_plan(sizes: Tuple[Tuple[int, int], ...],
     # cut the T-1 pairs of a plane into runs until the grid fills the card
     n_runs = min(t - 1, max(1, TARGET_BLOCKS // units))
     prm.run_len = -(-(t - 1) // n_runs)
-    prm.n_runs = -(-(t - 1) // prm.run_len)
+    n_runs = -(-(t - 1) // prm.run_len)          # none of them empty
     n_blocks = 0
     for s in range(len(sizes)):
         prm.scale[s].first_block = n_blocks
-        n_blocks += prm.n_runs * b * k * prm.scale[s].ns
+        n_blocks += n_runs * b * k * prm.scale[s].ns
     return prm, n_blocks, smem, tables
 
 
