@@ -29,9 +29,25 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      batch of 8) and over 20 frames (padded to one clip, trimmed back)
      against ``merge_window_predictions`` over direct ``predict_clips``,
      with the launch counts of one call;
-  6. runs the same weights on one clip x 8 frames on the CPU, in fp32,
+  6. ``video``: a seeded synthetic source of 240 uint8 frames at
+     1280 x 720 with drifting face boxes (side 300-400 px, some past the
+     frame's edge) through ``predict_video`` with the boxes and with eye
+     points made from them with a small rotation: the card's crops of a
+     chunk against ``crop_and_resize`` / ``warp_similarity`` on the CPU
+     (max |d| <= 1e-3 on 0..255, also with TF32 switched on globally), the
+     series against ``predict_from_crops`` of the card's crops, the launch
+     counts; wall time, source frames/s, and the crop and the alignment of
+     one 64-frame chunk with the copy and the compute apart;
+  7. ``api``: ``MimamoAPI.predict_crops`` on a seeded ``.npy`` of 300
+     crops, accumulated (against ``predict_from_crops``) and streamed
+     (against one long-clip forward), with emotions (rows summing to 1, a
+     CSV of 1 + 300 lines), and ``FeatureExtractor.extract`` against
+     ``embed_frames``; ``api_video`` (only where OpenCV imports): a
+     120-frame video with a boxes sidecar through ``MimamoAPI.predict``
+     and ``VideoProcessor.process``;
+  8. runs the same weights on one clip x 8 frames on the CPU, in fp32,
      and compares the card's embeddings and outputs with it;
-  7. prints ``{"kernels": [...]}`` and, last, the device line.
+  9. prints ``{"kernels": [...]}`` and, last, the device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
 of the JAX package.
@@ -40,15 +56,19 @@ of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from mimamo_tpu_torch import StreamingSession, phase, pyramid, weights
+from mimamo_tpu_torch import (StreamingSession, api, phase, preprocess,
+                              pyramid, weights)
 from mimamo_tpu_torch.config import BackboneSpec, MimamoConfig
 from mimamo_tpu_torch.kernels import (_build, layer2_kernel, phase_kernel,
                                       stem_kernel)
@@ -81,6 +101,15 @@ STREAM_REL_TOL = 1e-4
 # A slot left out of a feed, and a batch of windows against the same
 # batch: the same shapes and lanes, so the same numbers.
 SAME_SHAPE_REL_TOL = 1e-6
+# Crops of the card against the CPU's, 0..255 scale: the warp is the same
+# fp32 operations; the crop's GEMMs sum two non-zero hat weights per
+# output value in another order. TF32 would be off by up to ~0.2.
+CROP_ATOL = 1e-3
+VIDEO_T, VIDEO_H, VIDEO_W = 240, 720, 1280    # the video phase's source
+CROP_CHUNK = 64                               # crop_video_chunked's chunk
+API_T = 300                                   # crops of the api phase
+# Probabilities of one frame sum to 1.
+PROB_SUM_TOL = 1e-5
 
 
 def card() -> str:
@@ -113,8 +142,12 @@ def time_ms(fn, warmup: int = 2, iters: int = 5, batch: int = 10) -> float:
 
 
 def max_rel(got, want) -> float:
-    """max |got - want| / max |want| of two tensors or arrays."""
-    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    """max |got - want| / max |want| of two tensors or arrays, on the
+    device of the first tensor among them."""
+    dev = next((x.device for x in (got, want)
+                if isinstance(x, torch.Tensor)), None)
+    got = torch.as_tensor(got, device=dev).float()
+    want = torch.as_tensor(want, device=dev).float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-12)
             ).item()
 
@@ -491,18 +524,26 @@ EXPECTED_LAUNCHES = {"phase_diff_resize": 1, "stem_fused": 1,
                      "layer2_fused": 4}
 
 
-def counted(fn):
+def expected_launches(forwards: int = 1, classify: int = 0) -> dict:
+    """Launches of ``forwards`` forwards and ``classify`` backbone-only
+    calls (``classify_frames``: the stem and layer2, no phase)."""
+    return {"phase_diff_resize": forwards,
+            "stem_fused": forwards + classify,
+            "layer2_fused": 4 * (forwards + classify)}
+
+
+def counted(fn, expected: dict = None):
     """Run ``fn`` with the kernels' launch counts set to 0 just before, and
     return (its result, the counts just after); raises unless they are
-    EXPECTED_LAUNCHES."""
+    ``expected`` (default: one forward, EXPECTED_LAUNCHES)."""
+    expected = expected or EXPECTED_LAUNCHES
     for kern in KERNELS.values():
         kern.launches = 0
     result = fn()
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"kernel launches {launches} != "
-                             f"{EXPECTED_LAUNCHES}")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
     return result, launches
 
 
@@ -615,6 +656,254 @@ def check_from_crops(model: Mimamo, line: str) -> dict:
     return launches
 
 
+class MatmulTF32(TorchDispatchMode):
+    """Records the TF32 switch as it stands at each matmul run inside."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ in ("mm", "bmm", "addmm", "baddbmm",
+                                            "matmul"):
+            self.seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return func(*args, **(kwargs or {}))
+
+
+def video_source(t: int, h: int, w: int, seed: int):
+    """A seeded synthetic source: [t, h, w, 3] uint8 frames, [t, 4] square
+    face boxes (y0, x0, side, side) that drift smoothly, with a side of
+    300-400 px at 720p (scaled with h) and past the frame's edges at
+    times, and [t, 2, 2] eye points made from the boxes with a small
+    rotation (up to 8 degrees)."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8)
+    i = np.arange(t)
+    scale = h / VIDEO_H
+    side = scale * (350 + 50 * np.sin(i / 19))
+    y0 = (h - side) / 2 + scale * 240 * np.sin(i / 23 + 1.0)
+    x0 = (w - side) / 2 + scale * 520 * np.sin(i / 37 - 1.2)
+    boxes = np.stack([y0, x0, side, side], 1).astype(np.float32)
+    th = np.deg2rad(rng.uniform(-8, 8, t))
+    cy, cx, half = y0 + 0.38 * side, x0 + 0.5 * side, 0.28 * side
+    eyes = np.stack([
+        np.stack([cy + half * np.sin(th), cx - half * np.cos(th)], -1),
+        np.stack([cy - half * np.sin(th), cx + half * np.cos(th)], -1)],
+        1).astype(np.float32)
+    return frames, boxes, eyes
+
+
+def chunk_ms(frames: np.ndarray, params: np.ndarray, align: bool) -> tuple:
+    """Device time of one CROP_CHUNK-frame chunk of ``crop_video_chunked``:
+    (the pageable uint8 copy to the card, the crop or alignment), medians
+    of 5 after a warm-up."""
+    crop = (preprocess.warp_similarity if align
+            else preprocess.crop_and_resize)
+    host = frames[:CROP_CHUNK]
+    p = torch.from_numpy(params[:CROP_CHUNK]).cuda()
+    copy, compute = [], []
+    for i in range(6):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        dev = torch.from_numpy(host).cuda()
+        marks[1].record()
+        crop(dev, p, S)
+        marks[2].record()
+        marks[2].synchronize()
+        if i:
+            copy.append(marks[0].elapsed_time(marks[1]))
+            compute.append(marks[1].elapsed_time(marks[2]))
+    return statistics.median(copy), statistics.median(compute)
+
+
+def tf32_crop_err(frames: np.ndarray, boxes: np.ndarray,
+                  want: torch.Tensor) -> float:
+    """What the crop's two products would be off by under TF32 (the trap
+    ``crop_and_resize`` guards against): the same hat matrices, multiplied
+    with TF32 on; max |d| against the CPU crop ``want``."""
+    x = torch.from_numpy(frames).cuda().float()
+    b = torch.from_numpy(boxes).cuda()
+    ry = preprocess._interp_matrix(b[:, 0], b[:, 2], frames.shape[1], S)
+    rx = preprocess._interp_matrix(b[:, 1], b[:, 3], frames.shape[2], S)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = torch.einsum("tqw,tpwc->tpqc", rx,
+                         torch.einsum("tph,thwc->tpwc", ry, x))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return (y.cpu() - want).abs().max().item()
+
+
+def check_video(model: Mimamo, line: str) -> dict:
+    """``predict_video`` over VIDEO_T frames at 1280 x 720, with boxes and
+    with eye points; returns the launch counts of one call."""
+    cfg = model.config.clip
+    frames, boxes, eyes = video_source(VIDEO_T, VIDEO_H, VIDEO_W, SEED + 3)
+    batches = -(-len(window_starts(VIDEO_T, cfg.clip_len, cfg.stride)) // 8)
+    launches = None
+    for mode, kw in (("boxes", {"boxes": boxes}),
+                     ("eyes", {"landmarks": eyes})):
+        align = mode == "eyes"
+        model.predict_video(frames, **kw)                  # warm-up
+        got, launches = counted(lambda: model.predict_video(frames, **kw),
+                                expected_launches(batches))
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            model.predict_video(frames, **kw)               # ends on the host
+            walls.append(time.perf_counter() - t)
+        wall = statistics.median(walls)
+        params = (preprocess.similarity_from_landmarks(eyes, cfg.crop_size)
+                  if align else boxes)
+        crops = model.crop_video_chunked(frames, params, align=align)
+        rel = max_rel(got, model.predict_from_crops(crops, t_real=VIDEO_T))
+        crop = (preprocess.warp_similarity if align
+                else preprocess.crop_and_resize)
+        cpu = crop(torch.from_numpy(frames[:CROP_CHUNK]),
+                   torch.from_numpy(params[:CROP_CHUNK]), cfg.crop_size)
+        err = (crops[:CROP_CHUNK].cpu() - cpu).abs().max().item()
+        rec = MatmulTF32()
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True      # globally on
+        try:
+            with rec:
+                crops_on = model.crop_video_chunked(
+                    frames[:CROP_CHUNK], params[:CROP_CHUNK], align=align)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        err_on = (crops_on.cpu() - cpu).abs().max().item()
+        copy_ms, compute_ms = chunk_ms(frames, params, align)
+        report = {
+            "video": mode, "frames": VIDEO_T, "source": [VIDEO_H, VIDEO_W],
+            "wall_ms": wall * 1e3, "walls_ms": [x * 1e3 for x in walls],
+            "source_frames_per_s": VIDEO_T / wall,
+            "series_vs_from_crops_max_rel": rel,
+            "crop_vs_cpu_max_abs": err,
+            "crop_vs_cpu_max_abs_tf32_switched_on": err_on,
+            "tf32_at_each_matmul_inside_crop": rec.seen,
+            "chunk_frames": CROP_CHUNK, "chunk_copy_ms": copy_ms,
+            "chunk_compute_ms": compute_ms, "launches": launches,
+            "card": line}
+        if not align:
+            report["plain_tf32_crop_vs_cpu_max_abs"] = tf32_crop_err(
+                frames[:CROP_CHUNK], boxes[:CROP_CHUNK], cpu)
+        print(json.dumps(report), flush=True)
+        # the crop runs two matmuls, both with TF32 off; the warp none
+        if (got.shape != (VIDEO_T, 2) or not np.isfinite(got).all()
+                or not rel <= SAME_SHAPE_REL_TOL or not err <= CROP_ATOL
+                or not err_on <= CROP_ATOL
+                or rec.seen != ([] if align else [False, False])):
+            raise AssertionError(f"predict_video with {mode}: {report}")
+    return launches
+
+
+def check_api(model: Mimamo, state: dict, line: str) -> dict:
+    """``MimamoAPI.predict_crops`` and ``FeatureExtractor.extract`` on a
+    seeded ``.npy`` of API_T crops; returns the launch counts of one
+    ``classify_frames`` call."""
+    cfg = model.config
+    crops = np.random.default_rng(SEED + 4).integers(
+        0, 256, (API_T, S, S, 3), dtype=np.uint8)
+    starts = window_starts(API_T, cfg.clip.clip_len, cfg.clip.stride)
+    batches = -(-len(starts) // 8)
+    report = {"api_crops": API_T, "card": line}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "crops.npy")
+        np.save(path, crops)
+        a = api.MimamoAPI(config=cfg, state_dict=state, device="cuda")
+        a.predict_crops(path, streaming_threshold=None)      # warm-up
+        acc, report["launches_predict_crops"] = counted(
+            lambda: a.predict_crops(path, streaming_threshold=None),
+            expected_launches(batches))
+        report["accumulated_vs_from_crops_max_rel"] = max_rel(
+            acc, a.model.predict_from_crops(crops))
+        t = time.perf_counter()
+        a.predict_crops(path, streaming_threshold=None)
+        report["predict_crops_ms"] = (time.perf_counter() - t) * 1e3
+        streamed = a.predict_crops(path, streaming_threshold=0)
+        t = time.perf_counter()
+        a.predict_crops(path, streaming_threshold=0)
+        report["predict_crops_streamed_ms"] = (time.perf_counter() - t) * 1e3
+        report["streamed_vs_long_clip_max_rel"] = max_rel(
+            streamed, a.model.predict_clips(crops[None])[0])
+        csv = os.path.join(tmp, "out.csv")
+        (series, probs), report["launches_emotions"] = counted(
+            lambda: a.predict_crops(path, streaming_threshold=None,
+                                    emotions=True, out_csv=csv),
+            expected_launches(batches, classify=-(-API_T // 64)))
+        with open(csv) as f:
+            report["csv_lines"] = len(f.read().splitlines())
+        report["prob_row_sum_max_abs_err"] = float(
+            np.abs(probs.sum(-1) - 1).max())
+        _, classify_launches = counted(
+            lambda: a.model.classify_frames(crops[None, :64]),
+            expected_launches(0, 1))
+        fx = api.FeatureExtractor(config=cfg, state_dict=state,
+                                  device="cuda")
+        feats = np.load(fx.extract(path))
+        with torch.no_grad():
+            dev = torch.from_numpy(crops).cuda().float()
+            per_batch = torch.cat([fx.model.embed_frames(
+                preprocess.pad_short_clip(dev[i:i + 64], 64)[None])[0, :len(
+                    dev[i:i + 64])] for i in range(0, API_T, 64)])
+            whole = fx.model.embed_frames(dev[None])[0]
+        report["features_vs_embed_frames_max_rel"] = max_rel(feats,
+                                                             per_batch)
+        report["features_vs_one_call_max_rel"] = max_rel(feats, whole)
+    print(json.dumps(report), flush=True)
+    if not (acc.shape == (API_T, 2) and np.isfinite(acc).all()
+            and report["accumulated_vs_from_crops_max_rel"]
+            <= SAME_SHAPE_REL_TOL
+            and report["streamed_vs_long_clip_max_rel"] < STREAM_REL_TOL
+            and series.shape == (API_T, 2) and probs.shape == (API_T, 8)
+            and report["prob_row_sum_max_abs_err"] <= PROB_SUM_TOL
+            and report["csv_lines"] == 1 + API_T
+            and feats.shape == (API_T, 2048)
+            and report["features_vs_embed_frames_max_rel"]
+            <= SAME_SHAPE_REL_TOL
+            and report["features_vs_one_call_max_rel"] < EMB_REL_TOL):
+        raise AssertionError(f"api phase: {report}")
+    return classify_launches
+
+
+def check_api_video(model: Mimamo, state: dict, line: str) -> None:
+    """A 120-frame 640 x 360 video with a boxes sidecar through
+    ``MimamoAPI.predict`` and ``VideoProcessor.process``; only where OpenCV
+    imports (it decodes and encodes the file)."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        print(json.dumps({"api_video": "skipped: no cv2"}), flush=True)
+        return
+    from mimamo_tpu_torch.io import decode
+    frames, boxes, _ = video_source(120, 360, 640, SEED + 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.mp4")
+        decode.write_video(path, frames)
+        np.save(path + ".boxes.npy", boxes)
+        a = api.MimamoAPI(config=model.config, state_dict=state,
+                          device="cuda")
+        t = time.perf_counter()
+        series = a.predict(path)
+        wall = time.perf_counter() - t
+        decoded = decode.decode_video(path)
+        rel = max_rel(series, a.model.predict_video(decoded, boxes))
+        out = api.VideoProcessor(save_size=S, config=model.config,
+                                 device="cuda").process(path, tmp)
+        crops = np.load(out)
+        want = a.model.crop_video_chunked(decoded, boxes).cpu().numpy()
+        lsb = int(np.abs(crops.astype(int) - np.rint(want)).max())
+    report = {"api_video_frames": 120, "predict_ms": wall * 1e3,
+              "series_vs_predict_video_max_rel": rel,
+              "processor_crops_max_lsb": lsb, "card": line}
+    print(json.dumps(report), flush=True)
+    if not (series.shape == (120, 2) and np.isfinite(series).all()
+            and rel <= SAME_SHAPE_REL_TOL and crops.shape == (120, S, S, 3)
+            and crops.dtype == np.uint8 and lsb <= 1):
+        raise AssertionError(f"api_video phase: {report}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -670,10 +959,17 @@ def main() -> int:
     # -- the streaming path and the windowed path --------------------------------
     feed_launches = check_streaming(model, clips, line)
     crops_launches = check_from_crops(model, line)
+
+    # -- the video path and the user API -------------------------------------
+    video_launches = check_video(model, line)
+    classify_launches = check_api(model, state, line)
+    check_api_video(model, state, line)
     for rec in recs:
         rec["launches"] = launches[rec["name"]]
         rec["launches_stream_feed"] = feed_launches[rec["name"]]
         rec["launches_from_crops"] = crops_launches[rec["name"]]
+        rec["launches_predict_video"] = video_launches[rec["name"]]
+        rec["launches_classify_frames"] = classify_launches[rec["name"]]
 
     # -- the same weights on the CPU, one clip x 8 frames --------------------
     small = clips[:1, :8]

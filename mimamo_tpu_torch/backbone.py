@@ -31,6 +31,11 @@ from .preprocess import work_dtype
 STAGE_SIZES = (3, 4, 6, 3)            # ResNet-50
 STAGE_WIDTHS = (64, 128, 256, 512)    # bottleneck inner widths
 
+# FER+ label order (Barsoum et al. 2016; the albanie ferplus models'
+# classifier emits logits in this order — 8 classes incl. contempt).
+FERPLUS_CLASSES = ("neutral", "happiness", "surprise", "sadness",
+                   "anger", "disgust", "fear", "contempt")
+
 Folded = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 

@@ -27,6 +27,14 @@ MODULES = (
     "mimamo_tpu_torch.kernels.phase_kernel",
     "mimamo_tpu_torch.kernels.stem_kernel",
     "mimamo_tpu_torch.kernels.layer2_kernel",
+    "mimamo_tpu_torch.io",
+    "mimamo_tpu_torch.io.decode",
+    "mimamo_tpu_torch.io.openface",
+    "mimamo_tpu_torch.io.native_loader",
+    "mimamo_tpu_torch.data",
+    "mimamo_tpu_torch.data.crops",
+    "mimamo_tpu_torch.api",
+    "chip_smoke",
 )
 
 _PROBE = """
@@ -95,3 +103,18 @@ def test_explicit_cpu_device():
                             phase=PhaseSpec(phase_size=16)), device="cpu")
     assert m.device == torch.device("cpu")
     assert all(p.device.type == "cpu" for p in m.parameters())
+
+
+def test_api_entry_points_without_cuda_raise(monkeypatch, tmp_path):
+    """``MimamoAPI``, ``VideoProcessor`` and ``FeatureExtractor`` run on
+    the card unless the CPU is asked for: without a card they raise, and
+    asked onto the CPU they hold their model there."""
+    from mimamo_tpu_torch import api
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _small_config()
+    for make in (lambda **kw: api.MimamoAPI(config=cfg, **kw),
+                 lambda **kw: api.VideoProcessor(32, config=cfg, **kw),
+                 lambda **kw: api.FeatureExtractor(config=cfg, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert make(device="cpu").model.device == torch.device("cpu")
