@@ -10,14 +10,14 @@ two-step workflow's first step); ``FeatureExtractor.extract(crops.npy)
 (frames already decoded) do not.
 
 The video decodes in bounded windows on the host; each window's crops
-are made on the device (``Mimamo.crop_video_chunked``) and stay there.
-Every class runs on the card unless ``device="cpu"`` is passed; without a
-card and without a device it raises (``runner.resolve_device``).
+are made on the device (``preprocess.crop_video_chunked``) and stay
+there. Every class runs on the card unless ``device="cpu"`` is passed;
+without a card and without a device it raises
+(``runner.resolve_device``).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 from typing import Iterator, Optional
 
@@ -29,11 +29,11 @@ from .backbone import FERPLUS_CLASSES
 from .config import MimamoConfig
 from .data.crops import CropSource
 from .io import decode
-from .preprocess import pad_short_clip
-from .runner import Mimamo
+from .preprocess import crop_video_chunked, pad_short_clip
+from .runner import Mimamo, resolve_device
 
 
-def _iter_crop_chunks(model: Mimamo, video_path: str,
+def _iter_crop_chunks(video_path: str, crop_size: int, device,
                       boxes_path: Optional[str] = None,
                       max_frames: Optional[int] = None,
                       align: bool = False,
@@ -43,14 +43,14 @@ def _iter_crop_chunks(model: Mimamo, video_path: str,
     """Windowed decode -> track -> (align) -> device crop: only
     ``decode_window`` source frames are ever on the host at once.
 
-    Yields (crops [n, S, S, 3] float32 on the model's device, boxes
+    Yields (crops [n, S, S, 3] float32 on ``device``, boxes
     [n, 4] | None, landmarks [n, K, 2] | None) per window; every window
     has exactly ``decode_window`` frames except the last. The sidecar /
     tracker / alignment convention is ``decode.WindowParams``'s.
     ``want_boxes`` forces box tracking even when alignment comes from a
     landmark sidecar (the two-step workflow saves the boxes).
     """
-    wp = decode.WindowParams(video_path, model.config.clip.crop_size,
+    wp = decode.WindowParams(video_path, crop_size,
                              boxes_path=boxes_path,
                              landmarks_path=landmarks_path, align=align,
                              max_frames=max_frames,
@@ -59,11 +59,11 @@ def _iter_crop_chunks(model: Mimamo, video_path: str,
                                            window=decode_window,
                                            max_frames=max_frames):
         boxes, lm, params = wp.resolve(frames, start)
-        yield (model.crop_video_chunked(frames, params, align=align),
-               boxes, lm)
+        yield (crop_video_chunked(frames, params, crop_size, device,
+                                  align=align), boxes, lm)
 
 
-def _windowed_crop_pipeline(model: Mimamo, video_path: str,
+def _windowed_crop_pipeline(video_path: str, crop_size: int, device,
                             boxes_path: Optional[str] = None,
                             max_frames: Optional[int] = None,
                             align: bool = False,
@@ -76,7 +76,7 @@ def _windowed_crop_pipeline(model: Mimamo, video_path: str,
     accumulate."""
     crops_parts, boxes_parts, lm_parts = [], [], []
     for crops, boxes, lm in _iter_crop_chunks(
-            model, video_path, boxes_path=boxes_path,
+            video_path, crop_size, device, boxes_path=boxes_path,
             max_frames=max_frames, align=align,
             landmarks_path=landmarks_path, decode_window=decode_window,
             want_boxes=want_boxes):
@@ -109,13 +109,11 @@ class VideoProcessor:
 
     def __init__(self, save_size: int = 112,
                  config: Optional[MimamoConfig] = None, device=None):
+        # only the crop runs here, at ``save_size``: nothing of ``config``
+        # is read (it stays for the JAX package's signature)
+        del config
         self.save_size = save_size
-        cfg = config or MimamoConfig()
-        if cfg.clip.crop_size != save_size:
-            cfg = dataclasses.replace(
-                cfg, clip=dataclasses.replace(cfg.clip,
-                                              crop_size=save_size))
-        self.model = Mimamo(cfg, device=device)
+        self.device = resolve_device(device)
 
     def process(self, video_path: str, out_dir: str,
                 boxes_path: Optional[str] = None,
@@ -131,7 +129,7 @@ class VideoProcessor:
         windows. Returns the path of the crops file."""
         align = align or bool(landmarks_path)
         crops, boxes, landmarks = _windowed_crop_pipeline(
-            self.model, video_path, boxes_path=boxes_path,
+            video_path, self.save_size, self.device, boxes_path=boxes_path,
             max_frames=max_frames, align=align,
             landmarks_path=landmarks_path, decode_window=decode_window,
             want_boxes=True)
@@ -233,7 +231,8 @@ class MimamoAPI:
             raise ValueError(f"smooth window must be odd, got {smooth}")
         align = align or bool(landmarks_path)
         chunks = (c for c, _b, _l in _iter_crop_chunks(
-            self.model, video_path, boxes_path=boxes_path,
+            video_path, self.model.config.clip.crop_size, self.model.device,
+            boxes_path=boxes_path,
             max_frames=max_frames, align=align,
             landmarks_path=landmarks_path, decode_window=decode_window))
         return self._predict_from_chunks(

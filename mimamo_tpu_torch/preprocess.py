@@ -18,7 +18,9 @@ Face crops from source frames (``predict_video``): ``crop_and_resize``
 (axis-aligned boxes: per-frame hat-function matrices and two batched
 GEMMs, IEEE fp32 whatever the TF32 switches say) and ``warp_similarity``
 (similarity-aligned crops: elementwise fp32 coordinates, four gathered
-taps per output pixel), both on the frames' device. The fits that give
+taps per output pixel), both on the frames' device, and
+``crop_video_chunked``, which runs either over a whole video in
+fixed-size chunks on a given device. The fits that give
 ``warp_similarity`` its transforms (``similarity_from_eyes``,
 ``similarity_from_landmarks68``, ``similarity_from_landmarks``) are host
 numpy, copied from the JAX package line for line.
@@ -380,3 +382,34 @@ def warp_similarity(frames: torch.Tensor, transforms: torch.Tensor,
     top = tap(y0, x0) * (1 - fx) + tap(y0, x1) * fx
     bot = tap(y1, x0) * (1 - fx) + tap(y1, x1) * fx
     return top * (1 - fy) + bot * fy
+
+
+@torch.no_grad()
+def crop_video_chunked(frames_rgb: Union[np.ndarray, torch.Tensor],
+                       params: np.ndarray, crop_size: int, device,
+                       align: bool = False, chunk: int = 64) -> torch.Tensor:
+    """Source frames -> [T, crop_size, crop_size, 3] float32 crops on
+    ``device``, ``chunk`` frames at a time: a decoded video at source
+    resolution need not fit the card (60 s of 1080p is ~37 GB as float32).
+
+    ``params``: [T, 4] boxes (:func:`crop_and_resize`), or [T, 2, 3]
+    similarity transforms with ``align=True`` (:func:`warp_similarity`).
+    Frames cross to the device in their own dtype (uint8 from the decoder)
+    and are cast there. The tail chunk is padded by repeating its last
+    frame and params and trimmed after the crop, so every chunk has one
+    shape."""
+    crop = warp_similarity if align else crop_and_resize
+    t = frames_rgb.shape[0]
+    if t == 0:
+        raise ValueError("crop_video_chunked: empty video "
+                         "(0 decoded frames)")
+    pieces = []
+    for s in range(0, t, chunk):
+        f = torch.as_tensor(frames_rgb[s:s + chunk]).to(device)
+        p = torch.as_tensor(np.asarray(params[s:s + chunk], np.float32)
+                            ).to(device)
+        n = f.shape[0]
+        out = crop(pad_short_clip(f, chunk), pad_short_clip(p, chunk),
+                   crop_size)
+        pieces.append(out[:n] if n < chunk else out)
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)

@@ -108,13 +108,14 @@ def test_explicit_cpu_device():
 def test_api_entry_points_without_cuda_raise(monkeypatch, tmp_path):
     """``MimamoAPI``, ``VideoProcessor`` and ``FeatureExtractor`` run on
     the card unless the CPU is asked for: without a card they raise, and
-    asked onto the CPU they hold their model there."""
+    asked onto the CPU they hold their model (``VideoProcessor``, which
+    runs only the crop, its device) there."""
     from mimamo_tpu_torch import api
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _small_config()
-    for make in (lambda **kw: api.MimamoAPI(config=cfg, **kw),
+    for make in (lambda **kw: api.MimamoAPI(config=cfg, **kw).model,
                  lambda **kw: api.VideoProcessor(32, config=cfg, **kw),
-                 lambda **kw: api.FeatureExtractor(config=cfg, **kw)):
+                 lambda **kw: api.FeatureExtractor(config=cfg, **kw).model):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-        assert make(device="cpu").model.device == torch.device("cpu")
+        assert make(device="cpu").device == torch.device("cpu")
