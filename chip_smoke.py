@@ -47,7 +47,25 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      and ``VideoProcessor.process``;
   8. runs the same weights on one clip x 8 frames on the CPU, in fp32,
      and compares the card's embeddings and outputs with it;
-  9. prints ``{"kernels": [...]}`` and, last, the device line.
+  9. ``fp32``: the default config (``MimamoConfig()``, fp32 backbone)
+     through ``predict_clips`` at the flagship shape: launches (phase 1,
+     fp32 stem 1, layer2 kernel 0: fp32 layer2 runs on cuDNN), frames/s,
+     the stage split, and the card against the CPU on one clip x 8
+     frames; the fp32 stem kernel against its plain version (TF32 off) at
+     the flagship shape, N = 64, 256, 300 and small ragged shapes, its
+     times and the bounds of the FFMA and 3xTF32 designs;
+ 10. ``train``: the default config on a synthetic Aff-Wild2 corpus of
+     112^2 crops (2 videos of 120 frames): ``train.fit`` for one epoch
+     with eval and checkpoints, 20 frozen steps on one batch at lr 1e-3
+     (the loss falls, the backbone stays bit-equal), the launches of one
+     frozen step, that step against cached features and against the CPU
+     (1 clip x 8 frames), 2 fine-tuning steps with ``remat_backbone``
+     (the weights, the BN stats and ``predict_clips`` move), save /
+     restore / ``MimamoAPI(checkpoint_dir=...)``, ``evaluate_affwild2``,
+     and the step times;
+ 11. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
+     gate's bound under ``tol_max_rel`` or ``tol_abs``) and, last, the
+     device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
 of the JAX package.
@@ -55,6 +73,7 @@ of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -67,9 +86,11 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from mimamo_tpu_torch import (StreamingSession, api, phase, preprocess,
-                              pyramid, weights)
-from mimamo_tpu_torch.config import BackboneSpec, MimamoConfig
+from mimamo_tpu_torch import (StreamingSession, api, checkpoints, phase,
+                              preprocess, pyramid, train, weights)
+from mimamo_tpu_torch.config import BackboneSpec, MimamoConfig, TrainSpec
+from mimamo_tpu_torch.data import datasets
+from mimamo_tpu_torch.data.eval import evaluate_affwild2
 from mimamo_tpu_torch.kernels import (_build, layer2_kernel, phase_kernel,
                                       stem_kernel)
 from mimamo_tpu_torch.kernels.layer2_kernel import C_IN, OUT_W, WIDTH
@@ -86,6 +107,7 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12     # tensor cores, dense
 PEAK_FP32_FLOP_PER_S = 67e12      # outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12     # tensor cores, dense
 PHASE_TOL = 1e-4              # max |kernel - plain|, radians
 BF16_REL_TOL = 2e-2           # max |kernel - plain| / max |plain|
 # Card (bf16) vs CPU (fp32) on one 8-frame clip: bf16 rounding of the
@@ -112,6 +134,28 @@ API_CHUNK = 256           # MimamoAPI.predict_crops's chunk (streamed feed)
 API_BATCH = 64            # classify and FeatureExtractor batches
 # Probabilities of one frame sum to 1.
 PROB_SUM_TOL = 1e-5
+# The fp32 stem kernel against stem_plain with TF32 off: the CPU test's
+# bound against the Pallas f32 kernel (tests/test_torch_kernels.py).
+STEM_F32_REL_TOL = 1e-5           # max |d| / max |plain|
+STEM_F32_ATOL = 1e-3              # max |d|, stem outputs reach the hundreds
+# The default fp32 backbone on the card against the CPU, one 8-frame clip:
+# fp32 on both sides, the sums in another order. Seen on an H100:
+# embeddings 3.4e-7, outputs 3.6e-6.
+FP32_EMB_REL_TOL = 1e-5
+FP32_OUT_REL_TOL = 5e-5
+TRAIN_T = 120        # frames of each synthetic video: 4 clips of 48 at 24
+# A frozen step on cached features against the online step: the same
+# kernels on the same frames; the temporal backward's sums may land in
+# another order. Seen: loss 0.0, temporal weights 5.6e-9.
+CACHED_TOL = 1e-6
+# One frozen step on the card against the CPU, 1 clip x 8 frames: loss,
+# temporal gradients (max |d| / max |g| per tensor), temporal BN running
+# stats, and the parameters with a well-determined gradient. Seen: 4.8e-7,
+# 2.9e-5, 1.2e-7, 7.5e-9.
+STEP_LOSS_ATOL = 1e-5
+STEP_GRAD_REL_TOL = 3e-4
+STEP_BN_ATOL = 1e-5
+STEP_PARAM_ATOL = 1e-6
 
 
 def card() -> str:
@@ -165,13 +209,23 @@ def bound_ms(nbytes: float, flops: float,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def record(name, source, replaces, err, tol, ms, plain_ms, nbytes, flops,
+def errors(got, want) -> dict:
+    """The two error measures of the ``kernels`` line: max |got - want| /
+    max |want| and max |got - want|."""
+    return {"max_rel_err": max_rel(got, want),
+            "max_abs_err": (got.float() - want.float()).abs().max().item()}
+
+
+def record(name, source, replaces, errs, tols, ms, plain_ms, nbytes, flops,
            library_ms, peak_flop_per_s=PEAK_BF16_FLOP_PER_S):
+    """One kernel's entry of the ``kernels`` line. ``errs``:
+    :func:`errors`; ``tols``: the gate's bounds, keyed by unit
+    (``tol_max_rel``, ``tol_abs``)."""
     bound, bound_by = bound_ms(nbytes, flops, peak_flop_per_s)
     rec = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, "launches": None, "max_abs_err": err,
-           "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-           "bound_by": bound_by, "library_ms": library_ms}
+           "replaces": replaces, "launches": None, **errs, **tols, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": library_ms}
     print(json.dumps(dict(rec, kernel_ms=ms)), flush=True)
     return rec
 
@@ -193,8 +247,9 @@ def phase_work(bands: list, out: torch.Tensor):
 
 
 def phase_errs(bands: list, cfg: MimamoConfig, what: str) -> dict:
-    """Max |kernel - plain| of one launch over all ``bands``, without and
-    with amplitude weighting; raises beyond PHASE_TOL."""
+    """:func:`errors` of one launch over all ``bands`` against the plain
+    version, without and with amplitude weighting; raises when max |d|
+    exceeds PHASE_TOL."""
     k, p = cfg.pyramid.orientations, cfg.phase.phase_size
     b, t = bands[0].shape[:2]
     errs = {}
@@ -206,8 +261,8 @@ def phase_errs(bands: list, cfg: MimamoConfig, what: str) -> dict:
         want = torch.cat([phase.phase_diff_resize(band, p, weighting)
                           for band in bands], dim=2)
         torch.cuda.synchronize()
-        errs[weighting] = (out - want).abs().max().item()
-        if not errs[weighting] <= PHASE_TOL:
+        errs[weighting] = errors(out, want)
+        if not errs[weighting]["max_abs_err"] <= PHASE_TOL:
             raise AssertionError(f"phase kernel at {what} (weighting="
                                  f"{weighting}): max |err| {errs[weighting]}"
                                  f" > {PHASE_TOL}")
@@ -231,14 +286,16 @@ def check_phase(frames: torch.Tensor, cfg: MimamoConfig) -> dict:
                           for band in bands], dim=2)
 
     errs = phase_errs(bands, cfg, "the flagship step")
-    print(json.dumps({"phase_weighted_max_abs_err": errs[True],
+    print(json.dumps({"phase_weighted_max_abs_err":
+                      errs[True]["max_abs_err"],
                       "phase_weighted_ms": time_ms(lambda: kernel(True)),
                       "phase_weighted_plain_ms":
                       time_ms(lambda: plain(True), batch=2)}), flush=True)
     nbytes, flops = phase_work(bands, out)
     return record(
         "phase_diff_resize", "mimamo_tpu_torch/csrc/phase_diff_resize.cu",
-        "mimamo_tpu/pallas/phase_kernel.py:112", errs[False], PHASE_TOL,
+        "mimamo_tpu/pallas/phase_kernel.py:112", errs[False],
+        {"tol_abs": PHASE_TOL},
         time_ms(kernel), time_ms(plain, batch=2), nbytes, flops, None,
         PEAK_FP32_FLOP_PER_S)
 
@@ -355,8 +412,8 @@ def check_stem(crops: torch.Tensor, model: Mimamo) -> dict:
     flops = 2.0 * n * S * S * 64 * 147
     return record(
         "stem_fused", "mimamo_tpu_torch/csrc/stem.cu",
-        "mimamo_tpu/pallas/stem_kernel.py:153",
-        (got.float() - want.float()).abs().max().item(), BF16_REL_TOL,
+        "mimamo_tpu/pallas/stem_kernel.py:153", errors(got, want),
+        {"tol_max_rel": BF16_REL_TOL},
         time_ms(lambda: stem_kernel.stem_fused(crops, w2, bias, mean)),
         time_ms(lambda: stem_kernel.stem_plain(crops, w2, bias, mean)),
         nbytes, flops, time_ms(library))
@@ -399,8 +456,8 @@ def check_layer2(crops: torch.Tensor, model: Mimamo) -> dict:
         for blk in blocks for c in blk.values())
     return record(
         "layer2_fused", "mimamo_tpu_torch/csrc/layer2.cu",
-        "mimamo_tpu/pallas/layer2_kernel.py:174",
-        (got.float() - want.float()).abs().max().item(), BF16_REL_TOL,
+        "mimamo_tpu/pallas/layer2_kernel.py:174", errors(got, want),
+        {"tol_max_rel": BF16_REL_TOL},
         time_ms(lambda: layer2_kernel.layer2_fused(x, blocks)),
         time_ms(lambda: layer2_kernel.layer2_plain(x, blocks)),
         nbytes, flops, time_ms(library))
@@ -506,10 +563,10 @@ def stage_breakdown(model: Mimamo, clips: np.ndarray,
         mark("stem_kernel")
         x = folded._stage(stem.permute(0, 3, 1, 2), 1)
         mark("layer1")
-        x = layer2_kernel.layer2_fused(x.permute(0, 2, 3, 1).contiguous(),
-                                       folded.layer2)
-        mark("layer2_kernel")
-        x = folded._stage(x.permute(0, 3, 1, 2), 3)
+        x = folded.run_layer2(x)
+        mark("layer2_kernel" if folded.layer2 is not None
+             else "layer2_cudnn")
+        x = folded._stage(x, 3)
         mark("layer3")
         x = folded._stage(x, 4)
         mark("layer4")
@@ -529,17 +586,22 @@ def median_stages(runs: list) -> dict:
 
 KERNELS = {"phase_diff_resize": phase_kernel.KERNEL,
            "stem_fused": stem_kernel.KERNEL,
-           "layer2_fused": layer2_kernel.KERNEL}
+           "layer2_fused": layer2_kernel.KERNEL,
+           "stem_fused[f32]": stem_kernel.KERNEL_F32}
 
 
-def expected_launches(forwards: int = 1, classify: int = 0) -> dict:
+def expected_launches(forwards: int = 1, classify: int = 0,
+                      fp32: bool = False) -> dict:
     """Launches of ``forwards`` forwards, clip or streaming (the phase
-    kernel takes all scales in one launch, layer2 one launch per
-    bottleneck block), and ``classify`` backbone-only calls
-    (``classify_frames``: the stem and layer2, no phase)."""
+    kernel takes all scales in one launch), and ``classify`` backbone-only
+    calls (``classify_frames``: the backbone, no phase). A bf16 backbone
+    launches the bf16 stem and layer2 (one launch per bottleneck block);
+    an fp32 one the fp32 stem, with layer2 on cuDNN."""
+    backbone = forwards + classify
     return {"phase_diff_resize": forwards,
-            "stem_fused": forwards + classify,
-            "layer2_fused": 4 * (forwards + classify)}
+            "stem_fused": 0 if fp32 else backbone,
+            "layer2_fused": 0 if fp32 else 4 * backbone,
+            "stem_fused[f32]": backbone if fp32 else 0}
 
 
 def counted(fn, expected: dict = None):
@@ -896,6 +958,333 @@ def check_api_video(model: Mimamo, state: dict, line: str) -> None:
         raise AssertionError(f"api_video phase: {report}")
 
 
+def check_stem_f32(crops: torch.Tensor, model: Mimamo) -> dict:
+    """The fp32 stem kernel against its plain version (TF32 off) at the
+    flagship step, at the api phase's frame counts (64, 256, 300) and at
+    small ragged shapes (34^2 with an odd pooled-row count, 5 x 112^2, the
+    widest crop the form takes, 128^2, and the narrowest, 8^2); its times
+    and the bounds of both designs the kernel could have (fp32 FMAs, which
+    it uses, and 3xTF32 tensor-core products)."""
+    w2, bias = model._backbone_folded().stem
+    if w2.dtype != torch.float32:
+        raise AssertionError(f"the default config's stem is {w2.dtype}")
+    mean = model.config.backbone.mean_rgb
+    got = stem_kernel.stem_fused(crops, w2, bias, mean)
+    want = stem_kernel.stem_plain(crops, w2, bias, mean)
+    errs = {"flagship": errors(got, want)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for n, s in ((API_BATCH, S), (API_CHUNK, S), (API_T, S), (3, 34), (5, S),
+                 (2, stem_kernel.MAX_CROP_F32), (2, 8)):
+        c = torch.rand((n, s, s, 3), device="cuda", generator=gen) * 255
+        errs[f"n{n}_s{s}"] = errors(stem_kernel.stem_fused(c, w2, bias, mean),
+                                    stem_kernel.stem_plain(c, w2, bias, mean))
+    del c
+    print(json.dumps({"stem_f32_err": errs, "plain_max_abs":
+                      want.abs().max().item(), "tol": [STEM_F32_REL_TOL,
+                                                       STEM_F32_ATOL]}),
+          flush=True)
+    if not all(e["max_rel_err"] <= STEM_F32_REL_TOL
+               and e["max_abs_err"] <= STEM_F32_ATOL for e in errs.values()):
+        raise AssertionError(f"fp32 stem kernel: {errs}")
+    k = w2.reshape(7, 7, 3, 64).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+    def library():
+        x = for_backbone(crops, model.config.backbone)
+        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), k, bias,
+                                       stride=2, padding=3)
+        return torch.nn.functional.max_pool2d(torch.relu(y), 3, 2, 1)
+
+    n = crops.shape[0]
+    nbytes = crops.numel() * 4 + got.numel() * 4
+    flops = 2.0 * n * S * S * 64 * 147
+    print(json.dumps({"stem_f32_bound_ms": {
+        "ffma": bound_ms(nbytes, flops, PEAK_FP32_FLOP_PER_S)[0],
+        "3xtf32": bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)[0],
+        "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}}), flush=True)
+    return record(
+        "stem_fused[f32]", "mimamo_tpu_torch/csrc/stem.cu",
+        "mimamo_tpu/pallas/stem_kernel.py:153", errs["flagship"],
+        {"tol_max_rel": STEM_F32_REL_TOL, "tol_abs": STEM_F32_ATOL},
+        time_ms(lambda: stem_kernel.stem_fused(crops, w2, bias, mean)),
+        time_ms(lambda: stem_kernel.stem_plain(crops, w2, bias, mean)),
+        nbytes, flops, time_ms(library), PEAK_FP32_FLOP_PER_S)
+
+
+def check_fp32(state: dict, clips: np.ndarray, small_cpu: tuple,
+               line: str) -> tuple:
+    """``Mimamo(MimamoConfig())``, the default fp32 backbone, through
+    ``predict_clips`` at the flagship step: shape, finite values, launches
+    (phase 1, fp32 stem 1, layer2 kernel 0: fp32 layer2 runs on cuDNN),
+    frames/s and the stage split, and the card against the CPU's fp32
+    forward on one clip x 8 frames. Returns (model, launches)."""
+    model = Mimamo(MimamoConfig())                       # on the card
+    model.load_state_dict(state)
+    model.predict_clips(clips)                           # warm-up
+    torch.cuda.synchronize()
+    out, launches = counted(lambda: model.predict_clips(clips),
+                            expected_launches(fp32=True))
+    if tuple(out.shape) != (B, T, 2) or not torch.isfinite(out).all():
+        raise AssertionError(f"fp32 predict_clips gave {tuple(out.shape)}")
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        model.predict_clips(clips)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step = statistics.median(times)
+    stages = median_stages([stage_breakdown(model, clips) for _ in range(3)])
+    rates = {name: flops / (stages["layer2_cudnn" if name == "layer2"
+                                   else name] * 1e-3) / 1e12
+             for name, flops in conv_flops(B * T).items()}
+    # what keeping TF32 off costs: the same step with cuDNN's TF32 on (a
+    # yardstick only; the port keeps it off)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        model.predict_clips(clips)
+        tf32 = []
+        for _ in range(5):
+            t = time.perf_counter()
+            model.predict_clips(clips)
+            torch.cuda.synchronize()
+            tf32.append(time.perf_counter() - t)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    small = clips[:1, :8]
+    with torch.no_grad():
+        card_out = model.predict_clips(small).cpu()
+        card_emb = model.embed_frames(torch.from_numpy(small).cuda().float()
+                                      ).cpu()
+    cpu_out, cpu_emb = small_cpu
+    report = {"fp32_frames_per_s": B * T / step, "fp32_step_ms": step * 1e3,
+              "fp32_steps_ms": [x * 1e3 for x in times],
+              "fp32_stage_ms": stages,
+              "fp32_stage_sum_ms": sum(stages.values()),
+              "fp32_conv_tflop_per_s": rates,
+              "fp32_step_ms_cudnn_tf32_on": statistics.median(tf32) * 1e3,
+              "fp32_launches": launches,
+              "fp32_card_vs_cpu_emb_max_rel": max_rel(card_emb, cpu_emb),
+              "fp32_card_vs_cpu_out_max_rel": max_rel(card_out, cpu_out),
+              "tol": [FP32_EMB_REL_TOL, FP32_OUT_REL_TOL], "card": line}
+    print(json.dumps(report), flush=True)
+    if not (report["fp32_card_vs_cpu_emb_max_rel"] <= FP32_EMB_REL_TOL
+            and report["fp32_card_vs_cpu_out_max_rel"] <= FP32_OUT_REL_TOL):
+        raise AssertionError("fp32: card and CPU disagree beyond tolerance")
+    return model, launches
+
+
+def conv_flops(frames: int, size: int = 2 * S) -> dict:
+    """Operations of the convs of ResNet-50 layers 1-4 over ``frames``
+    frames of ``size``^2 (stride in the first 1x1 of a stage's block 0):
+    2 per multiply-add."""
+    out, inplanes, side = {}, 64, size // 4
+    for i, (blocks, width) in enumerate(zip((3, 4, 6, 3),
+                                            (64, 128, 256, 512))):
+        side = side if i == 0 else side // 2
+        macs = 0
+        for b in range(blocks):
+            cin = inplanes if b == 0 else 4 * width
+            macs += side * side * (cin * width + 9 * width * width
+                                   + 4 * width * width)
+            if b == 0:
+                macs += side * side * cin * 4 * width
+        inplanes = 4 * width
+        out[f"layer{i + 1}"] = 2.0 * macs * frames
+    return out
+
+
+def _train_model(state: dict, device="cuda", **train_kw):
+    cfg = dataclasses.replace(MimamoConfig(), train=TrainSpec(**train_kw))
+    model = Mimamo(cfg, device=device)
+    model.load_state_dict(state)
+    return model, train.create_train_state(model), train.make_train_step(model)
+
+
+def step_ms(step, st, batch, n: int) -> list:
+    """Wall times (ms) of ``n`` synchronised train steps."""
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        step(st, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def state_diff(a: dict, b: dict, keys=None) -> float:
+    """max |a - b| over the entries ``keys`` (default: all) of two
+    state_dicts."""
+    keys = a.keys() if keys is None else keys
+    return max((a[k].float() - b[k].float().to(a[k].device)).abs().max()
+               .item() for k in keys)
+
+
+def step_vs_cpu(state: dict, batch: dict) -> dict:
+    """One frozen step on the card and on the CPU from the same weights on
+    ``batch``: loss, each temporal gradient (max |d| / its max |g|), the
+    temporal BN running stats, and the parameters whose gradient is well
+    above rounding noise (|g| >= 1e-3 of its tensor's largest: Adam's first
+    update moves the others by up to lr either way)."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        model, st, step = _train_model(state, device)
+        _, metrics = step(st, batch)
+        grads = {n: p.grad.detach().cpu() for n, p in
+                 model.temporal.named_parameters()}
+        runs.append((float(metrics["loss"]), grads,
+                     {k: v.cpu() for k, v in model.temporal.state_dict()
+                      .items()}))
+    (loss_c, g_c, sd_c), (loss_h, g_h, sd_h) = runs
+    sure = {k: g.abs() >= 1e-3 * g.abs().max() for k, g in g_h.items()}
+    return {
+        "loss_abs": abs(loss_c - loss_h),
+        "grad_rel": max(((g_c[k] - g).abs().max() / g.abs().max()).item()
+                        for k, g in g_h.items()),
+        "bn_stats_abs": state_diff(sd_c, sd_h, [k for k in sd_h
+                                                if "running" in k]),
+        "params_abs": max((sd_c[k] - sd_h[k]).abs()[sure[k]].max().item()
+                          for k in g_h)}
+
+
+def check_train(state: dict, line: str) -> dict:
+    """The training path under the default config (fp32 backbone at 224,
+    48-frame clips, ``TrainSpec()`` batch 4) on a synthetic Aff-Wild2
+    corpus of 112^2 crops: ``train.fit`` for one epoch with eval and
+    checkpoints; 20 frozen steps on one batch at lr 1e-3 lower the loss
+    and leave the backbone as it was; the launches of one frozen step; a
+    frozen online step against the same step on cached features and
+    against the CPU (1 clip x 8 frames); 2 fine-tuning steps with
+    ``remat_backbone``; save, restore and ``MimamoAPI(checkpoint_dir=...)``;
+    ``evaluate_affwild2``; the step times. Returns the launches of one
+    frozen step."""
+    report = {"card": line}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "aff")
+        datasets.make_synthetic_affwild2(root, n_videos=2, frames=TRAIN_T,
+                                         size=S, seed=SEED)
+        cfg = MimamoConfig()
+        ds = datasets.AffWild2Dataset(root, clip=cfg.clip)
+        ckpt = os.path.join(tmp, "ckpt")
+        t = time.perf_counter()
+        _, rows = train.fit(cfg, ds, ckpt=ckpt, eval_dataset=ds, epochs=1)
+        report["fit_s"] = time.perf_counter() - t
+        report["fit_rows"] = rows
+        fit_ok = (rows[0]["steps"] == len(ds) // cfg.train.batch_size > 0
+                  and np.isfinite(rows[0]["loss"]) and rows[0].get("best")
+                  and np.isfinite(rows[0]["val_mean_ccc"])
+                  and train_ckpt_ok(ckpt, rows[0]["steps"]))
+        batch = next(ds.batches(cfg.train.batch_size))
+
+        model, st, step = _train_model(state, learning_rate=1e-3)
+        backbone0 = {k: v.clone() for k, v in
+                     model.backbone.state_dict().items()}
+        losses = [float(step(st, batch)[1]["loss"])]        # warm-up
+        (_, first), launches = counted(lambda: step(st, batch),
+                                       expected_launches(fp32=True))
+        losses += [float(first["loss"])] + [
+            float(step(st, batch)[1]["loss"]) for _ in range(18)]
+        report["fixed_batch_losses"] = losses
+        report["backbone_moved_by_frozen_steps"] = state_diff(
+            model.backbone.state_dict(), backbone0)
+        report["frozen_step_launches"] = launches
+
+        online, st_o, step_o = _train_model(state)
+        cached, st_c, step_c = _train_model(state)
+        with torch.no_grad():
+            feats = cached.embed_frames(
+                torch.from_numpy(batch["clips"]).cuda()).cpu().numpy()
+        m_o = step_o(st_o, batch)[1]
+        m_c = step_c(st_c, dict(batch, features=feats))[1]
+        report["online_vs_cached"] = {
+            "loss_abs": abs(float(m_o["loss"]) - float(m_c["loss"])),
+            "temporal_abs": state_diff(online.temporal.state_dict(),
+                                       cached.temporal.state_dict())}
+        report["card_vs_cpu_step"] = step_vs_cpu(state, {
+            k: v[:1, :8] for k, v in batch.items()})
+        report["step_ms"] = {
+            "frozen_online": step_ms(step_o, st_o, batch, 5),
+            "cached_features": step_ms(step_c, st_c,
+                                       dict(batch, features=feats), 5)}
+
+        fine, st_f, step_f = _train_model(state, freeze_backbone=False,
+                                          remat_backbone=True)
+        before = fine.predict_clips(batch["clips"])
+        bb0 = {k: v.clone() for k, v in fine.backbone.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        ft_losses = [float(step_f(st_f, batch)[1]["loss"]) for _ in range(2)]
+        report["finetune_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        after = fine.predict_clips(batch["clips"])
+        bb1 = fine.backbone.state_dict()
+        refit = Mimamo(fine.config)
+        refit.load_state_dict(fine.state_dict())
+        report["finetune"] = {
+            "losses": ft_losses,
+            "weights_moved": state_diff(bb1, bb0, [k for k in bb0 if
+                                                   "running" not in k
+                                                   and "num_b" not in k]),
+            "bn_stats_moved": state_diff(bb1, bb0, [k for k in bb0
+                                                    if "running" in k]),
+            "predict_before_vs_after_max_rel": max_rel(after, before),
+            "predict_vs_refolded_max_rel": max_rel(
+                after, refit.predict_clips(batch["clips"]))}
+        del refit
+        report["step_ms"]["finetune_remat"] = step_ms(step_f, st_f, batch, 3)
+
+        saved = os.path.join(tmp, "saved")
+        checkpoints.save(saved, st_f)
+        checkpoints.save_backbone_meta(saved, fine.config.backbone.mean_rgb,
+                                       fine.config.backbone.channel_order)
+        fresh, st_r, _ = _train_model(weights.init_variables(
+            fine.config, SEED + 1), freeze_backbone=False)
+        checkpoints.restore(saved, st_r)
+        a = api.MimamoAPI(config=fine.config, checkpoint_dir=saved,
+                          device="cuda")
+        small = batch["clips"][:1, :8]
+        report["restore"] = {
+            "step": st_r.step, "weights_abs": state_diff(
+                fresh.state_dict(), fine.state_dict()),
+            "api_weights_abs": state_diff(a.model.state_dict(),
+                                          fresh.state_dict()),
+            "api_vs_restored_max_rel": max_rel(
+                a.model.predict_clips(small), fresh.predict_clips(small))}
+        ev = evaluate_affwild2(fine, ds, chunk=cfg.clip.clip_len)
+        report["evaluate_affwild2"] = ev
+    report["step_ms_median"] = {k: statistics.median(v) for k, v in
+                                report["step_ms"].items()}
+    print(json.dumps(report), flush=True)
+    cmp_, ft, rs = (report["card_vs_cpu_step"], report["finetune"],
+                    report["restore"])
+    if not (fit_ok and losses[-1] < losses[0]
+            and report["backbone_moved_by_frozen_steps"] == 0.0
+            and report["online_vs_cached"]["loss_abs"] <= CACHED_TOL
+            and report["online_vs_cached"]["temporal_abs"] <= CACHED_TOL
+            and cmp_["loss_abs"] <= STEP_LOSS_ATOL
+            and cmp_["grad_rel"] <= STEP_GRAD_REL_TOL
+            and cmp_["bn_stats_abs"] <= STEP_BN_ATOL
+            and cmp_["params_abs"] <= STEP_PARAM_ATOL
+            and all(np.isfinite(ft["losses"])) and ft["weights_moved"] > 0
+            and ft["bn_stats_moved"] > 0
+            and ft["predict_before_vs_after_max_rel"] > 0
+            and ft["predict_vs_refolded_max_rel"] <= SAME_SHAPE_REL_TOL
+            and rs["step"] == st_f.step and rs["weights_abs"] == 0.0
+            and rs["api_weights_abs"] == 0.0
+            and rs["api_vs_restored_max_rel"] == 0.0
+            and all(np.isfinite(ev[k]) for k in ("valence_ccc",
+                                                 "arousal_ccc"))):
+        raise AssertionError(f"train phase: {report}")
+    return launches
+
+
+def train_ckpt_ok(ckpt: str, steps: int) -> bool:
+    """``fit`` left the epoch's checkpoint, the best-val one, both with
+    their backbone meta, and the metrics file."""
+    return (checkpoints.latest_step(ckpt) == steps
+            and checkpoints.latest_step(ckpt + "_best") == steps
+            and checkpoints.load_backbone_meta(ckpt) is not None
+            and checkpoints.load_backbone_meta(ckpt + "_best") is not None
+            and os.path.exists(ckpt + ".metrics.jsonl"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -974,12 +1363,32 @@ def main() -> int:
     with torch.no_grad():
         cpu_out = cpu.predict_clips(small)
         cpu_emb = cpu.embed_frames(torch.from_numpy(small).float())
+    del cpu
     emb_rel, out_rel = max_rel(card_emb, cpu_emb), max_rel(card_out, cpu_out)
     print(json.dumps({"card_vs_cpu_emb_max_rel": emb_rel,
                       "card_vs_cpu_out_max_rel": out_rel,
                       "tol": [EMB_REL_TOL, OUT_REL_TOL]}), flush=True)
     if not (emb_rel < EMB_REL_TOL and out_rel < OUT_REL_TOL):
         raise AssertionError("card and CPU disagree beyond tolerance")
+    del model
+    torch.cuda.empty_cache()
+
+    # -- the default config: fp32 backbone ------------------------------------
+    model32, fp32_launches = check_fp32(state, clips, (cpu_out, cpu_emb), line)
+    with torch.no_grad():
+        stem_rec = check_stem_f32(
+            torch.from_numpy(clips).cuda().float().reshape(B * T, S, S, 3),
+            model32)
+    del model32
+    torch.cuda.empty_cache()
+
+    # -- the training path ------------------------------------------------------
+    train_launches = check_train(state, line)
+    recs.append(stem_rec)
+    for rec in recs:
+        rec["launches_fp32_forward"] = fp32_launches[rec["name"]]
+        rec["launches_train_step"] = train_launches[rec["name"]]
+    stem_rec["launches"] = fp32_launches["stem_fused[f32]"]
 
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

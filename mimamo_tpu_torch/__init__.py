@@ -8,9 +8,11 @@ valence/arousal), ``predict_stream`` (chunk by chunk, state carried) and
 ``predict_video`` (decoded frames plus face boxes or landmarks, cropped or
 aligned on the device), and ``StreamingSession`` (a fixed number of
 concurrent streams advancing together); the user API in ``api``
-(``MimamoAPI``, ``VideoProcessor``, ``FeatureExtractor``). All run on the
-card unless ``device="cpu"`` is passed. Weights come from
-``weights.init_variables`` or ``weights.from_jax_variables``.
+(``MimamoAPI``, ``VideoProcessor``, ``FeatureExtractor``); training in
+``train`` (``fit``, ``make_train_step``), with ``checkpoints``,
+``data.datasets`` and ``data.eval``. All run on the card unless
+``device="cpu"`` is passed. Weights come from ``weights.init_variables``,
+``weights.from_jax_variables`` or a checkpoint.
 """
 
 from .config import (BackboneSpec, ClipSpec, MimamoConfig, PhaseSpec,

@@ -24,7 +24,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from . import weights
+from . import checkpoints, weights
 from .backbone import FERPLUS_CLASSES
 from .config import MimamoConfig
 from .data.crops import CropSource
@@ -182,18 +182,21 @@ class MimamoAPI:
     """End-to-end ``predict(video) -> per-frame (valence, arousal)``,
     optionally written as CSV.
 
-    ``MimamoAPI(config=None, state_dict=None, device=None, seed=0)``:
-    the weights are ``state_dict`` (the port's schema, e.g.
-    ``weights.from_jax_variables``) or random ones from ``seed``.
+    ``MimamoAPI(config=None, state_dict=None, device=None, seed=0,
+    checkpoint_dir=None)``: the weights are ``state_dict`` (the port's
+    schema, e.g. ``weights.from_jax_variables``), else the latest step of
+    a port checkpoint directory (``checkpoints.save``, as ``train.fit``
+    writes it), else random ones from ``seed``. A checkpoint's recorded
+    backbone preprocessing (mean, channel order) overrides ``config``'s.
     """
 
     def __init__(self, config: Optional[MimamoConfig] = None,
                  state_dict=None, device=None, seed: int = 0,
                  checkpoint_dir: Optional[str] = None):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpoints are not ported yet "
-                "(ROADMAP.md, Queue A11); pass state_dict")
+        config = checkpoints.apply_backbone_meta(config or MimamoConfig(),
+                                                 checkpoint_dir)
+        if state_dict is None and checkpoint_dir:
+            state_dict = checkpoints.load(checkpoint_dir)["model"]
         self.model = _model(config, state_dict, device, seed)
         self.last_peak_crop_frames: Optional[int] = None
 

@@ -9,21 +9,31 @@ converted FER+ checkpoints expect. Inference runs the BN-folded form,
 :class:`FoldedResNet50`, built by :func:`fold_batchnorm`:
 
   * stem: ``kernels.stem_kernel`` (upscale + conv1 + relu + max pool from
-    the crop; replaces the JAX path's ``composite_stem``);
+    the crop; replaces the JAX path's ``composite_stem``), in the
+    configured dtype (bf16 or fp32 kernel);
   * layer1, layer3, layer4: ``F.conv2d`` in channels_last, in the
     configured dtype (XLA lowered these outside any Pallas kernel);
-  * layer2: ``kernels.layer2_kernel``;
+  * layer2: ``kernels.layer2_kernel`` in bf16; ``F.conv2d`` like the other
+    stages in fp32, as the JAX package routes it (its Pallas layer2 is
+    bf16-only, so an fp32 backbone runs layer2 as XLA convs);
   * pool5: mean over space, the 2048-d embedding, and the FER+ ``fc``.
+
+Fine-tuning runs the unfolded :meth:`ResNet50.forward` with training-mode
+BatchNorm (``batchnorm.BatchNorm2d``) on ``preprocess.for_backbone`` input,
+as plain autograd: the kernels are inference-only.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
+from .batchnorm import BatchNorm2d, stats_frozen
 from .config import BackboneSpec
 from .kernels import layer2_kernel, stem_kernel
 from .preprocess import work_dtype
@@ -40,21 +50,28 @@ Folded = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
 class Bottleneck(nn.Module):
-    """Bottleneck block (parameters only; inference uses the folded form)."""
+    """Bottleneck block; its ``forward`` is the unfolded (training) form,
+    inference uses the folded one."""
 
     def __init__(self, inplanes: int, width: int, stride: int):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, width, 1, stride=stride, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(width * 4)
+        self.bn3 = BatchNorm2d(width * 4)
         self.downsample = None
         if stride != 1 or inplanes != width * 4:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, width * 4, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(width * 4))
+                BatchNorm2d(width * 4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        return F.relu(self.bn3(self.conv3(y)) + res)
 
 
 class ResNet50(nn.Module):
@@ -64,7 +81,7 @@ class ResNet50(nn.Module):
         super().__init__()
         self.spec = spec
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for i, (blocks, width) in enumerate(zip(STAGE_SIZES, STAGE_WIDTHS)):
             layer = []
@@ -74,6 +91,38 @@ class ResNet50(nn.Module):
                 inplanes = width * 4
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.fc = nn.Linear(spec.feature_dim, spec.num_classes)
+
+    def _forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(images.permute(0, 3, 1, 2))))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for i in range(len(STAGE_SIZES)):
+            x = getattr(self, f"layer{i + 1}")(x)
+        return x.mean(dim=(2, 3))
+
+    def forward(self, images: torch.Tensor, remat: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[N, H, W, 3] preprocessed fp32 images (``preprocess.for_backbone``)
+        -> (pool5 embeddings [N, 2048], FER+ logits), unfolded, with each
+        BatchNorm in the module's mode (training: batch statistics and one
+        running-stat update per call).
+
+        ``remat``: keep no activations for the backward pass and compute
+        them again in it (``torch.utils.checkpoint``), as the JAX package's
+        ``jax.checkpoint`` does under ``TrainSpec.remat_backbone``; the
+        recomputation leaves the running stats alone."""
+        if self.spec.dtype != "float32":
+            raise NotImplementedError(
+                f"the unfolded backbone runs in float32 only, got "
+                f"{self.spec.dtype!r} (a bf16 fine-tune is not ported; "
+                f"see ROADMAP.md)")
+        if remat:
+            emb = torch.utils.checkpoint.checkpoint(
+                self._forward, images, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    stats_frozen(self)))
+        else:
+            emb = self._forward(images)
+        return emb, self.fc(emb)
 
 
 def _fold(conv: nn.Conv2d, bn: nn.BatchNorm2d
@@ -111,8 +160,11 @@ class FoldedResNet50:
     """BN-folded inference ResNet-50 on raw crops.
 
     Built once from :func:`fold_batchnorm`'s output; the weights are cast
-    to the configured dtype and laid out for their consumers (the stem and
-    layer2 kernels, channels_last ``F.conv2d`` for the other stages).
+    to the configured dtype and laid out for their consumers (the stem
+    kernel, the layer2 kernel in bf16, channels_last ``F.conv2d`` for the
+    other stages). The layer2 route is chosen here, once, from
+    ``spec.dtype`` and on every device: ``run_layer2`` is
+    :meth:`_layer2_kernel` in bf16 and :meth:`_layer2_convs` in fp32.
     """
 
     def __init__(self, folded: Folded, spec: BackboneSpec):
@@ -120,9 +172,16 @@ class FoldedResNet50:
         dt = work_dtype(spec)
         self.stem = stem_kernel.prepare_stem_weights(
             *folded["conv1"], spec.channel_order, dt)
-        self.layer2 = layer2_kernel.pack_layer2_params(folded, dt)
+        if dt == torch.bfloat16:
+            self.layer2 = layer2_kernel.pack_layer2_params(folded, dt)
+            self.run_layer2 = self._layer2_kernel
+            conv_stages = (1, 3, 4)
+        else:
+            self.layer2 = None
+            self.run_layer2 = self._layer2_convs
+            conv_stages = (1, 2, 3, 4)
         self.stages = {}
-        for stage in (1, 3, 4):
+        for stage in conv_stages:
             blocks = []
             for b in range(STAGE_SIZES[stage - 1]):
                 p = f"layer{stage}.{b}."
@@ -156,6 +215,16 @@ class FoldedResNet50:
             x = self._bottleneck(x, blk)
         return x
 
+    def _layer2_kernel(self, x: torch.Tensor) -> torch.Tensor:
+        """layer2 through ``kernels.layer2_kernel`` (NCHW view of NHWC in
+        and out)."""
+        return layer2_kernel.layer2_fused(
+            x.permute(0, 2, 3, 1).contiguous(), self.layer2).permute(0, 3, 1, 2)
+
+    def _layer2_convs(self, x: torch.Tensor) -> torch.Tensor:
+        """layer2 as four folded bottlenecks of ``F.conv2d``."""
+        return self._stage(x, 2)
+
     def __call__(self, crops: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[N, S, S, 3] float32 RGB crops (0..255, S = input_size / 2) ->
@@ -167,9 +236,7 @@ class FoldedResNet50:
                 f"upscale so far (see ROADMAP.md)")
         stem = stem_kernel.stem_fused(crops, *self.stem, self.spec.mean_rgb)
         x = self._stage(stem.permute(0, 3, 1, 2), 1)     # NCHW view of NHWC
-        x = layer2_kernel.layer2_fused(
-            x.permute(0, 2, 3, 1).contiguous(), self.layer2)
-        x = self._stage(x.permute(0, 3, 1, 2), 3)
+        x = self._stage(self.run_layer2(x), 3)
         x = self._stage(x, 4)
         emb = x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)
         emb = emb.to(torch.float32)

@@ -117,6 +117,52 @@ class ClipSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    """Training hyperparameters (``train.make_optimizer``,
+    ``train.make_train_step``, ``train.fit``)."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0    # > 0: AdamW
+    # "constant" | "cosine" (linear warmup over warmup_steps, cosine decay
+    # to 0 over the run; needs total_steps at optimizer build)
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    batch_size: int = 4          # clips per step
+    epochs: int = 20
+    loss: str = "ccc"            # "ccc" | "ccc+mse"
+    mse_weight: float = 0.0
+    # Per-clip augmentation inside the train step, deterministic in
+    # (seed, step). Needs the online appearance stream: cached features
+    # cannot reflect an augmented crop.
+    augment: bool = False            # per-clip random horizontal flip
+    brightness_jitter: float = 0.0   # per-clip scale in [1-j, 1+j]
+    # "time": CCC per clip over its frames (frame-level labels, Aff-Wild2);
+    # "batch": CCC over the clip batch of time-averaged predictions
+    # (utterance-level labels, OMG).
+    loss_axis: str = "time"
+    seed: int = 0
+    freeze_backbone: bool = True  # the reference trains on cached features
+    # Recompute the backbone's activations in the backward pass (only with
+    # freeze_backbone=False).
+    remat_backbone: bool = True
+
+    def __post_init__(self):
+        # loss and mse_weight are one knob under two names (the step reads
+        # only mse_weight): a config may not claim "ccc" and train with MSE
+        if self.loss not in ("ccc", "ccc+mse"):
+            raise ValueError(f"loss must be 'ccc' or 'ccc+mse', got "
+                             f"{self.loss!r}")
+        if self.loss == "ccc+mse" and self.mse_weight <= 0:
+            raise ValueError("loss='ccc+mse' requires mse_weight > 0")
+        if self.loss == "ccc" and self.mse_weight:
+            raise ValueError(f"mse_weight={self.mse_weight} requires "
+                             f"loss='ccc+mse'")
+        if self.weight_decay < 0:
+            raise ValueError(f"weight_decay must be >= 0, got "
+                             f"{self.weight_decay}")
+
+
+@dataclasses.dataclass(frozen=True)
 class MimamoConfig:
     """Top-level config for the full pipeline."""
 
@@ -125,6 +171,7 @@ class MimamoConfig:
     backbone: BackboneSpec = BackboneSpec()
     temporal: TemporalSpec = TemporalSpec()
     clip: ClipSpec = ClipSpec()
+    train: TrainSpec = TrainSpec()
 
     @property
     def num_phase(self) -> int:

@@ -2,9 +2,8 @@
 
 An own copy of ``open_npy_mmap`` and ``CropSource`` from
 ``mimamo_tpu/data/datasets.py`` (numpy; the port imports nothing of the
-JAX package). ``api.MimamoAPI.predict_crops`` reads its input through
-:class:`CropSource`. The datasets and samplers of that module come with
-training (ROADMAP.md, Queue A10).
+JAX package). ``api.MimamoAPI.predict_crops`` and the datasets of
+``data.datasets`` read their input through :class:`CropSource`.
 """
 
 from __future__ import annotations

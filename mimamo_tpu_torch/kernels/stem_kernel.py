@@ -5,9 +5,11 @@ Counterpart of ``mimamo_tpu/pallas/stem_kernel.py`` (``stem_fused``,
 0..255, ``max_pool3x3/2(relu(conv1_7x7/2(upscale2x(crop - mean)) + b))``
 with BN folded into conv1 and the BGR flip, when configured, folded into
 the weights. The upscale and mean subtraction run in fp32 and round to the
-conv dtype where conv1 casts; the conv accumulates in fp32. The kernel is
-``csrc/stem.cu``; it reads the NHWC crops directly, so the port needs no
-``prepare_stem_input``.
+conv dtype where conv1 casts; the conv accumulates in fp32. The kernels are
+in ``csrc/stem.cu``, one per conv dtype (the TPU kernel's static ``dtype``
+argument): bf16 on the tensor cores (``KERNEL``) and fp32 on FMAs with no
+rounding below fp32 (``KERNEL_F32``, crops up to ``MAX_CROP_F32``). Both
+read the NHWC crops directly, so the port needs no ``prepare_stem_input``.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ import torch.nn.functional as F
 from ..preprocess import upscale2x
 from ._build import I, P, Kernel
 
-KERNEL = Kernel("mimamo_stem", [P, P, P, P, I, I, ctypes.c_float,
-                                ctypes.c_float, ctypes.c_float, P])
+_ARGS = [P, P, P, P, I, I, ctypes.c_float, ctypes.c_float, ctypes.c_float, P]
+KERNEL = Kernel("mimamo_stem", _ARGS)              # bf16
+KERNEL_F32 = Kernel("mimamo_stem_f32", _ARGS)      # fp32
 MAX_CROP = 192          # the kernel's shared-memory strip grows with S
+MAX_CROP_F32 = 128      # fp32 doubles the strip, the weights and the ring
 
 
 def prepare_stem_weights(conv1_weight: torch.Tensor, conv1_bias: torch.Tensor,
@@ -59,8 +63,8 @@ def stem_fused(crops: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     features in ``w2.dtype`` (NHWC), for even S >= 8.
 
     ``w2``/``bias`` come from :func:`prepare_stem_weights`. A CUDA tensor
-    goes through the kernel (bf16 only); a CPU tensor through
-    :func:`stem_plain`.
+    goes through the kernel of ``w2.dtype`` (bf16, or fp32 for
+    S <= ``MAX_CROP_F32``); a CPU tensor through :func:`stem_plain`.
     """
     if (crops.dim() != 4 or crops.shape[1] != crops.shape[2]
             or crops.shape[3] != 3 or crops.shape[1] % 2
@@ -78,16 +82,21 @@ def stem_fused(crops: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
         raise ValueError("crops, weights and bias must share a device")
     if crops.device.type == "cpu":
         return stem_plain(crops, w2, bias, mean_rgb)
-    if crops.device.type != "cuda" or w2.dtype != torch.bfloat16:
-        raise ValueError(f"the stem kernel takes bf16 weights on a CUDA "
-                         f"device, got {w2.dtype} on {crops.device}")
+    kernel = {torch.bfloat16: KERNEL, torch.float32: KERNEL_F32}.get(
+        w2.dtype)
+    if crops.device.type != "cuda" or kernel is None:
+        raise ValueError(f"the stem kernels take bf16 or fp32 weights on a "
+                         f"CUDA device, got {w2.dtype} on {crops.device}")
+    if kernel is KERNEL_F32 and crops.shape[1] > MAX_CROP_F32:
+        raise ValueError(f"the fp32 stem kernel takes crops up to "
+                         f"{MAX_CROP_F32}, got {crops.shape[1]}")
     if not (crops.is_contiguous() and w2.is_contiguous()
             and bias.is_contiguous()):
         raise ValueError("crops, weights and bias must be contiguous")
     n, s = crops.shape[0], crops.shape[1]
-    out = torch.empty((n, s // 2, s // 2, 64), dtype=torch.bfloat16,
+    out = torch.empty((n, s // 2, s // 2, 64), dtype=w2.dtype,
                       device=crops.device)
-    KERNEL(crops.data_ptr(), w2.data_ptr(), bias.data_ptr(), out.data_ptr(),
+    kernel(crops.data_ptr(), w2.data_ptr(), bias.data_ptr(), out.data_ptr(),
            n, s, *(float(m) for m in mean_rgb),
            torch.cuda.current_stream(crops.device).cuda_stream)
     return out

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .batchnorm import BatchNorm2d
 from .config import TemporalSpec
 
 
@@ -32,7 +33,8 @@ Carries = Tuple[torch.Tensor, torch.Tensor]     # (h_micro, h_macro), [B, H]
 class MicroCNN(nn.Module):
     """Stacked phase-diff maps [N, C, P, P] -> [N, micro_embed_dim]:
     per width, conv3x3 (no bias) -> BN -> relu -> max_pool 2x2, then fc on
-    the NCHW flatten."""
+    the NCHW flatten. In training mode the BNs use batch statistics and
+    update their running stats as Flax does (``batchnorm.BatchNorm2d``)."""
 
     def __init__(self, spec: TemporalSpec, in_channels: int, phase_size: int):
         super().__init__()
@@ -41,7 +43,7 @@ class MicroCNN(nn.Module):
         for i, feats in enumerate(spec.micro_cnn_features):
             setattr(self, f"conv{i + 1}",
                     nn.Conv2d(c, feats, 3, padding=1, bias=False))
-            setattr(self, f"bn{i + 1}", nn.BatchNorm2d(feats))
+            setattr(self, f"bn{i + 1}", BatchNorm2d(feats))
             c, p = feats, p // 2
         self.fc = nn.Linear(c * p * p, spec.micro_embed_dim)
 

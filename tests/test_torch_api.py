@@ -211,7 +211,10 @@ def test_smooth_series_and_csv_text_equal(tmp_path):
 
 
 def test_checkpoint_dir_is_not_ported(weights_case):
-    with pytest.raises(NotImplementedError, match="A11"):
+    """``checkpoint_dir`` is read since checkpoints were ported
+    (``test_torch_checkpoints`` holds a real one against the JAX API): a
+    directory with no saved step raises, naming it."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint steps"):
         api.MimamoAPI(config=weights_case[1], device="cpu",
                       checkpoint_dir="/nonexistent")
 

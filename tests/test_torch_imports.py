@@ -34,6 +34,12 @@ MODULES = (
     "mimamo_tpu_torch.data",
     "mimamo_tpu_torch.data.crops",
     "mimamo_tpu_torch.api",
+    "mimamo_tpu_torch.batchnorm",
+    "mimamo_tpu_torch.losses",
+    "mimamo_tpu_torch.checkpoints",
+    "mimamo_tpu_torch.train",
+    "mimamo_tpu_torch.data.datasets",
+    "mimamo_tpu_torch.data.eval",
     "chip_smoke",
 )
 
@@ -119,3 +125,16 @@ def test_api_entry_points_without_cuda_raise(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_fit_without_cuda_raises(monkeypatch, tmp_path):
+    """``train.fit`` trains on the card unless the CPU is asked for."""
+    from mimamo_tpu_torch import train
+    from mimamo_tpu_torch.data import datasets
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _small_config()
+    datasets.make_synthetic_affwild2(str(tmp_path), n_videos=1, frames=150,
+                                     size=32)
+    ds = datasets.AffWild2Dataset(str(tmp_path), clip=cfg.clip)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.fit(cfg, ds)
