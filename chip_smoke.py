@@ -51,9 +51,10 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      through ``predict_clips`` at the flagship shape: launches (phase 1,
      fp32 stem 1, layer2 kernel 0: fp32 layer2 runs on cuDNN), frames/s,
      the stage split, and the card against the CPU on one clip x 8
-     frames; the fp32 stem kernel against its plain version (TF32 off) at
-     the flagship shape, N = 64, 256, 300 and small ragged shapes, its
-     times and the bounds of the FFMA and 3xTF32 designs;
+     frames; the fp32 stem kernel (3xTF32 on the tensor cores) against its
+     plain version (TF32 off) at the flagship shape, N = 64, 256, 300 and
+     small ragged shapes, its times, its 3xTF32 bound and the bound of an
+     fp32 FMA design;
  10. ``train``: the default config on a synthetic Aff-Wild2 corpus of
      112^2 crops (2 videos of 120 frames): ``train.fit`` for one epoch
      with eval and checkpoints, 20 frozen steps on one batch at lr 1e-3
@@ -963,8 +964,8 @@ def check_stem_f32(crops: torch.Tensor, model: Mimamo) -> dict:
     flagship step, at the api phase's frame counts (64, 256, 300) and at
     small ragged shapes (34^2 with an odd pooled-row count, 5 x 112^2, the
     widest crop the form takes, 128^2, and the narrowest, 8^2); its times
-    and the bounds of both designs the kernel could have (fp32 FMAs, which
-    it uses, and 3xTF32 tensor-core products)."""
+    and the bounds of two designs: 3xTF32 tensor-core products, which it
+    uses and which its record's bound follows, and fp32 FMAs."""
     w2, bias = model._backbone_folded().stem
     if w2.dtype != torch.float32:
         raise AssertionError(f"the default config's stem is {w2.dtype}")
@@ -1008,7 +1009,7 @@ def check_stem_f32(crops: torch.Tensor, model: Mimamo) -> dict:
         {"tol_max_rel": STEM_F32_REL_TOL, "tol_abs": STEM_F32_ATOL},
         time_ms(lambda: stem_kernel.stem_fused(crops, w2, bias, mean)),
         time_ms(lambda: stem_kernel.stem_plain(crops, w2, bias, mean)),
-        nbytes, flops, time_ms(library), PEAK_FP32_FLOP_PER_S)
+        nbytes, 3 * flops, time_ms(library), PEAK_TF32_FLOP_PER_S)
 
 
 def check_fp32(state: dict, clips: np.ndarray, small_cpu: tuple,

@@ -1,6 +1,7 @@
 // Fused ResNet stem: mean-sub + exact 2x upscale + conv1 7x7/2 + bias + relu
 // + maxpool 3x3/2, from the S x S crop to the [N, S/2, S/2, 64] map: bf16
-// (stem_kernel, below) or fp32 (stem_kernel_f32, after it).
+// (stem_kernel, below) or fp32 (stem_kernel_f32, after it: conv1 in 3xTF32
+// on the tensor cores).
 //
 // Replaces the TPU kernel stem_fused (mimamo_tpu/pallas/stem_kernel.py, body
 // _stem_kernel; operands from prepare_stem_weights/prepare_stem_input), which
@@ -251,47 +252,151 @@ stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 form (stem_fused at dtype=float32): the same function with no
-// rounding below fp32. conv1 runs on fp32 FMAs, not on the tensor cores:
-// TF32 keeps ~3 decimal digits and stem outputs reach the hundreds, and a
-// 3xTF32 split would triple the tensor-core work for a stage that is one
-// launch per forward. Same block structure as the bf16 form (one block per
-// crop and strip of kRows pooled rows, the strip's upscaled rows in shared
-// memory, a ring of 3 conv rows, pooling as soon as a pooled row's 3 conv
-// rows exist), with everything in fp32: at S = 112 the strip is 62 KB, the
-// resident weights 37 KB and the ring 89 KB, so one block per SM, and the
-// form takes S <= kMaxCrop (128; the launch refuses more).
+// The fp32 form (stem_fused at dtype=float32): the same function, with fp32
+// operands and results. conv1 runs on the tensor cores as 3xTF32: each
+// operand x splits into hi = tf32(x) and lo = tf32(x - hi) (round to
+// nearest, ties away, as cvt.rna.tf32.f32 rounds), and each product is
+// a_lo * b_hi + a_hi * b_lo + a_hi * b_hi, three mma.sync m16n8k8 .tf32
+// into the same fp32 accumulators. What the split drops (a_lo * b_lo and
+// the rounding of lo) is ~2^-22 of a product; the larger error is that of
+// the 63 tensor-core accumulations into each fp32 accumulator, ~2e-6 of the
+// largest output, under the 1e-5 gate. Plain TF32 (hi * hi alone) keeps ~3
+// decimal digits, and stem outputs reach the hundreds.
 //
-// Register tiling: a pass computes two conv rows; warp w takes row w / 4 of
-// the pair and 16 output channels (16 * (w % 4)), lane l the conv columns
-// l, l + 32, l + 64, l + 96 (clamped to S - 1; the clamped ones are not
-// stored). Per tap, 4 strip loads (stride 6 floats across lanes: a 2-way
-// bank conflict) and 4 float4 weight loads (one address per warp: a
-// broadcast) feed 64 FMAs. Bound: operations, 2 * 147 FLOP per conv pixel
-// and channel (90.6 GFLOP at 384 crops of 112^2, 1.35 ms at 67 TFLOP/s);
-// the kernel also spends 1/8 of its lanes on clamped columns at S = 112
-// and half a pass per block on the strip's first conv row.
+// Same block structure as the bf16 form (one block per crop and strip of
+// kRows pooled rows, the strip's upscaled rows in shared memory, a ring of
+// 3 conv rows, pooling as soon as a pooled row's 3 conv rows exist) and
+// the same implicit GEMM: M = conv pixels of a conv row in m16 tiles, two
+// tiles a warp; N = 64 in eight n8 tiles; K = 7 ky x 24 = 168 = 21 k8
+// steps, the 21 (kx, ch) taps of one ky contiguous at element 6c of the
+// strip row and taps 21-23 of each ky carrying zero weights. An A fragment
+// register is one fp32 shared load (stride 6 floats across the 8 rows of a
+// fragment: a 2-way bank conflict on three of them); the weights stay
+// resident as fp32 [168][72], a pitch that makes the B loads
+// conflict-free. A is split once per k8 step and reused by the 8 n tiles,
+// B once per load and reused by the 2 m tiles; the split is integer work
+// beside the mma (tf32_bits).
+//
+// Everything is fp32 in shared memory: at S = 112 the strip is 63,488 B,
+// the weights 48,384 B and the ring 91,392 B (203,264 B, one block per
+// SM); at S = kMaxCrop = 128, 225,152 B of the 232,448 a block may have,
+// and the launch refuses larger crops. kWarps = 7: a pass over two conv
+// rows at S = 112 is 14 m16 tiles, two for each warp; the pass over the
+// strip's first conv row gives each warp one tile.
+//
+// Bound: operations, 3 x 2 x 147 FLOP per conv pixel and channel on the
+// TF32 tensor cores (272 GFLOP at 384 crops of 112^2, 0.549 ms at 495
+// TFLOP/s); the kernel also computes the 21 zero-weight taps (168 / 147)
+// and one conv row in 9 twice (9 / 8).
 namespace f32 {
 
-constexpr int kWarps = 8;
+// kRows, kURows, kOut and row_elems as in the bf16 form
+constexpr int kWarps = 7;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 4;                  // pooled rows per block
-constexpr int kURows = 4 * kRows + 7;     // upscaled rows per block
-constexpr int kOut = 64;
-constexpr int kTaps = 147;                // 7 ky x 7 kx x 3 channels
+constexpr int kK = 7 * kKy;               // 168 = 21 k8 steps
+constexpr int kWPitch = kOut + 8;         // fp32 pitch of a weight row
 constexpr int kPitch = kOut + 4;          // fp32 pitch of a conv ring row
-constexpr int kSlots = 4;                 // conv columns per lane
-constexpr int kMaxCrop = 32 * kSlots;
-constexpr int kLaneOut = 16;              // output channels per warp
-
-__host__ __device__ inline int row_elems(int S) { return 6 * S + 18; }
+constexpr int kMaxCrop = 128;
 
 __host__ __device__ inline int strip_bytes(int S) {
   return (kURows * row_elems(S) * 4 + 15) / 16 * 16;
 }
 
 inline int smem_bytes(int S) {
-  return strip_bytes(S) + kTaps * kOut * 4 + 3 * S * kPitch * 4;
+  return strip_bytes(S) + kK * kWPitch * 4 + 3 * S * kPitch * 4;
+}
+
+// x rounded to tf32 (10 explicit mantissa bits, ties away from zero), as
+// fp32 bits with the 13 low bits zero. Half an ulp added to the magnitude
+// bits, then truncated: for finite x the result of cvt.rna.tf32.f32, in
+// two integer operations, where cvt's slow pipe held back the whole split.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// hi = tf32(x), lo = tf32(x - hi); x - hi is exact in fp32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// conv1 + bias + relu of kTiles m16 tiles (tiles t0, t0 + kWarps of the
+// pass that starts at local conv row `first`) into the ring.
+template <int kTiles>
+__device__ __forceinline__ void conv_tiles(
+    const float* su, const float* sw, float* sc, const float* bias, int S,
+    int rowlen, int pr0, int first, int tpr, int t0, int g, int q) {
+  int jl[kTiles], col0[kTiles], base[kTiles][2];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const int t = t0 + i * kWarps;
+    jl[i] = first + t / tpr;
+    col0[i] = (t % tpr) * 16;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      base[i][h] = 2 * jl[i] * rowlen + 6 * min(col0[i] + g + 8 * h, S - 1);
+  }
+  float acc[kTiles][8][4];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+  const float* bsrc = sw + q * kWPitch + g;
+#pragma unroll
+  for (int kk = 0; kk < kK / 8; ++kk) {
+    const int off0 = tap_offset(8 * kk + q, rowlen);
+    const int off1 = tap_offset(8 * kk + q + 4, rowlen);
+    uint32_t ahi[kTiles][4], alo[kTiles][4];
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      split(su[base[i][0] + off0], ahi[i][0], alo[i][0]);
+      split(su[base[i][1] + off0], ahi[i][1], alo[i][1]);
+      split(su[base[i][0] + off1], ahi[i][2], alo[i][2]);
+      split(su[base[i][1] + off1], ahi[i][3], alo[i][3]);
+    }
+    // per n tile: B split once for both m tiles, the small products first
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      uint32_t bhi[2], blo[2];
+      split(bsrc[8 * kk * kWPitch + 8 * nt], bhi[0], blo[0]);
+      split(bsrc[(8 * kk + 4) * kWPitch + 8 * nt], bhi[1], blo[1]);
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i) {
+        mma_tf32(acc[i][nt], alo[i], bhi[0], bhi[1]);
+        mma_tf32(acc[i][nt], ahi[i], blo[0], blo[1]);
+        mma_tf32(acc[i][nt], ahi[i], bhi[0], bhi[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const int cr = 2 * pr0 - 1 + jl[i];        // global conv row
+    const bool valid = cr >= 0 && cr < S;
+    float* dst = sc + (jl[i] % 3) * S * kPitch;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cc = col0[i] + g + 8 * h;
+      if (cc >= S) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int o = 8 * nt + 2 * q;
+        float2 v;
+        v.x = valid ? fmaxf(acc[i][nt][2 * h] + bias[o], 0.f) : 0.f;
+        v.y = valid ? fmaxf(acc[i][nt][2 * h + 1] + bias[o + 1], 0.f) : 0.f;
+        *reinterpret_cast<float2*>(dst + cc * kPitch + o) = v;
+      }
+    }
+  }
 }
 
 }  // namespace f32
@@ -301,94 +406,57 @@ stem_kernel_f32(const float* __restrict__ crops, const float* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ out,
                 int S, float m0, float m1, float m2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rowlen = f32::row_elems(S);
+  const int rowlen = row_elems(S);
   float* su = reinterpret_cast<float*>(smem);                  // strip
-  float* sw = reinterpret_cast<float*>(smem + f32::strip_bytes(S));
-  float* sc = sw + f32::kTaps * f32::kOut;       // [3][S][kPitch] conv ring
+  float* sw =                                                  // [kK][kWPitch]
+      reinterpret_cast<float*>(smem + f32::strip_bytes(S));
+  float* sc = sw + f32::kK * f32::kWPitch;       // [3][S][kPitch] conv ring
   const int sp = S / 2;
-  const int strips = (sp + f32::kRows - 1) / f32::kRows;
+  const int strips = (sp + kRows - 1) / kRows;
   const int n = blockIdx.x / strips;
-  const int pr0 = (blockIdx.x % strips) * f32::kRows;
+  const int pr0 = (blockIdx.x % strips) * kRows;
   const float* img = crops + static_cast<long long>(n) * S * S * 3;
   const float mean[3] = {m0, m1, m2};
   const int tid = threadIdx.x;
 
   const int ur0 = 4 * pr0 - 5;                 // first upscaled row
-  for (int i = tid; i < f32::kURows * rowlen; i += f32::kThreads) {
+#pragma unroll 4
+  for (int i = tid; i < kURows * rowlen; i += f32::kThreads) {
     const int row = i / rowlen, e = i % rowlen;
     su[i] = upscaled_f32(img, S, ur0 + row, e / 3 - 3, e % 3, mean[e % 3]);
   }
-  for (int i = tid; i < f32::kTaps * f32::kOut; i += f32::kThreads)
-    sw[i] = w[i];                              // [147][64] weights
+  for (int i = tid; i < f32::kK * kOut / 4; i += f32::kThreads) {
+    const int k = i / (kOut / 4), o4 = i % (kOut / 4);
+    const int ky = k / kKy, jj = k % kKy;
+    *reinterpret_cast<float4*>(sw + k * f32::kWPitch + 4 * o4) =
+        jj < 21 ? reinterpret_cast<const float4*>(w)[(21 * ky + jj) * 16 + o4]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   __syncthreads();
 
   const int warp = tid / 32, lane = tid % 32;
-  const int half = warp / 4;                   // row of the pair
-  const int o0 = f32::kLaneOut * (warp % 4);   // first output channel
-  int col[f32::kSlots];
-#pragma unroll
-  for (int i = 0; i < f32::kSlots; ++i) col[i] = 6 * min(lane + 32 * i, S - 1);
-  float b[f32::kLaneOut];
-#pragma unroll
-  for (int o = 0; o < f32::kLaneOut; ++o) b[o] = bias[o0 + o];
+  const int g = lane / 4, q = lane % 4;
+  const int tpr = (S + 15) / 16;               // m16 tiles per conv row
 
   // group 0: local conv row 0; group gi >= 1: rows 2gi - 1 and 2gi, then
   // pooled row pr0 + gi - 1 from rows 2gi - 2 .. 2gi.
-  for (int gi = 0; gi <= f32::kRows; ++gi) {
-    if (half < (gi == 0 ? 1 : 2)) {
-      const int jl = (gi == 0 ? 0 : 2 * gi - 1) + half;   // local conv row
-      float acc[f32::kSlots][f32::kLaneOut];
-#pragma unroll
-      for (int i = 0; i < f32::kSlots; ++i)
-#pragma unroll
-        for (int o = 0; o < f32::kLaneOut; ++o) acc[i][o] = 0.f;
-      for (int ky = 0; ky < 7; ++ky) {
-        const float* row = su + (2 * jl + ky) * rowlen;
-        const float* wk = sw + 21 * ky * f32::kOut + o0;
-#pragma unroll
-        for (int j = 0; j < 21; ++j) {
-          float x[f32::kSlots];
-#pragma unroll
-          for (int i = 0; i < f32::kSlots; ++i) x[i] = row[col[i] + j];
-          const float4* wv =
-              reinterpret_cast<const float4*>(wk + j * f32::kOut);
-#pragma unroll
-          for (int q = 0; q < f32::kLaneOut / 4; ++q) {
-            const float4 wq = wv[q];
-#pragma unroll
-            for (int i = 0; i < f32::kSlots; ++i) {
-              acc[i][4 * q] = fmaf(x[i], wq.x, acc[i][4 * q]);
-              acc[i][4 * q + 1] = fmaf(x[i], wq.y, acc[i][4 * q + 1]);
-              acc[i][4 * q + 2] = fmaf(x[i], wq.z, acc[i][4 * q + 2]);
-              acc[i][4 * q + 3] = fmaf(x[i], wq.w, acc[i][4 * q + 3]);
-            }
-          }
-        }
-      }
-      const int cr = 2 * pr0 - 1 + jl;         // global conv row
-      const bool valid = cr >= 0 && cr < S;
-      float* dst = sc + (jl % 3) * S * f32::kPitch + o0;
-#pragma unroll
-      for (int i = 0; i < f32::kSlots; ++i) {
-        const int cc = lane + 32 * i;
-        if (cc >= S) continue;
-#pragma unroll
-        for (int q = 0; q < f32::kLaneOut / 4; ++q) {
-          float4 v;
-          v.x = valid ? fmaxf(acc[i][4 * q] + b[4 * q], 0.f) : 0.f;
-          v.y = valid ? fmaxf(acc[i][4 * q + 1] + b[4 * q + 1], 0.f) : 0.f;
-          v.z = valid ? fmaxf(acc[i][4 * q + 2] + b[4 * q + 2], 0.f) : 0.f;
-          v.w = valid ? fmaxf(acc[i][4 * q + 3] + b[4 * q + 3], 0.f) : 0.f;
-          *reinterpret_cast<float4*>(dst + cc * f32::kPitch + 4 * q) = v;
-        }
-      }
+  for (int gi = 0; gi <= kRows; ++gi) {
+    const int first = gi == 0 ? 0 : 2 * gi - 1;
+    const int ntiles = (gi == 0 ? 1 : 2) * tpr;
+    for (int t0 = warp; t0 < ntiles; t0 += 2 * f32::kWarps) {
+      if (t0 + f32::kWarps < ntiles)
+        f32::conv_tiles<2>(su, sw, sc, bias, S, rowlen, pr0, first, tpr, t0,
+                           g, q);
+      else
+        f32::conv_tiles<1>(su, sw, sc, bias, S, rowlen, pr0, first, tpr, t0,
+                           g, q);
     }
     __syncthreads();
     const int pr = pr0 + gi - 1;
     if (gi > 0 && pr < sp) {
       // 3x3/2 max pool of local conv rows 2gi - 2 .. 2gi, 4 channels a thread
-      for (int i = tid; i < sp * (f32::kOut / 4); i += f32::kThreads) {
-        const int c4 = i % (f32::kOut / 4), pc = i / (f32::kOut / 4);
+      for (int i = tid; i < sp * (kOut / 4); i += f32::kThreads) {
+        const int c4 = i % (kOut / 4), pc = i / (kOut / 4);
         float4 best = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int dj = 0; dj < 3; ++dj) {
           const float* row = sc + ((2 * gi - 2 + dj) % 3) * S * f32::kPitch;
@@ -404,7 +472,7 @@ stem_kernel_f32(const float* __restrict__ crops, const float* __restrict__ w,
           }
         }
         const long long pix = (static_cast<long long>(n) * sp + pr) * sp + pc;
-        *reinterpret_cast<float4*>(out + pix * f32::kOut + 4 * c4) = best;
+        *reinterpret_cast<float4*>(out + pix * kOut + 4 * c4) = best;
       }
     }
     __syncthreads();
@@ -421,7 +489,7 @@ extern "C" int mimamo_stem_f32(const void* crops, const void* w,
   cudaError_t err = cudaFuncSetAttribute(
       stem_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int strips = (S / 2 + f32::kRows - 1) / f32::kRows;
+  const int strips = (S / 2 + kRows - 1) / kRows;
   stem_kernel_f32<<<N * strips, f32::kThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(crops), static_cast<const float*>(w),

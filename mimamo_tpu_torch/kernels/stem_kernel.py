@@ -7,9 +7,12 @@ with BN folded into conv1 and the BGR flip, when configured, folded into
 the weights. The upscale and mean subtraction run in fp32 and round to the
 conv dtype where conv1 casts; the conv accumulates in fp32. The kernels are
 in ``csrc/stem.cu``, one per conv dtype (the TPU kernel's static ``dtype``
-argument): bf16 on the tensor cores (``KERNEL``) and fp32 on FMAs with no
-rounding below fp32 (``KERNEL_F32``, crops up to ``MAX_CROP_F32``). Both
-read the NHWC crops directly, so the port needs no ``prepare_stem_input``.
+argument), both on the tensor cores: bf16 (``KERNEL``) and fp32
+(``KERNEL_F32``, crops up to ``MAX_CROP_F32``), whose conv1 splits each
+fp32 operand into two TF32 parts and sums three products (3xTF32): not
+bit-equal to fp32 FMA sums, but within 1e-5 of the largest output. Both
+read the NHWC crops directly, so the port needs no
+``prepare_stem_input``.
 """
 
 from __future__ import annotations
@@ -93,6 +96,9 @@ def stem_fused(crops: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     if not (crops.is_contiguous() and w2.is_contiguous()
             and bias.is_contiguous()):
         raise ValueError("crops, weights and bias must be contiguous")
+    if kernel is KERNEL_F32 and w2.data_ptr() % 16:
+        raise ValueError("the fp32 stem kernel reads its weights in 16-byte "
+                         "vectors: they must be 16-byte aligned")
     n, s = crops.shape[0], crops.shape[1]
     out = torch.empty((n, s // 2, s // 2, 64), dtype=w2.dtype,
                       device=crops.device)

@@ -3,6 +3,8 @@ the JAX package's Pallas kernel, run as the JAX tests run it on the CPU
 (``interpret=True``). The CUDA kernels themselves are held against these
 plain versions on the card by chip_smoke.py."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,13 +191,7 @@ def _port_stem(crops, k7, b, order, dtype):
 def test_stem_matches_pallas_f32(order):
     """atol 1e-3 in f32 (tests/test_pallas.py)."""
     crops, k7, b = _stem_inputs()
-    w2, b2 = jstem.prepare_stem_weights(jnp.asarray(k7), jnp.asarray(b),
-                                        channel_order=order,
-                                        dtype=jnp.float32)
-    want = np.asarray(jstem.stem_fused(
-        jstem.prepare_stem_input(jnp.asarray(crops),
-                                 JBackboneSpec().mean_rgb),
-        w2, b2, dtype=jnp.float32, interpret=True))
+    want = _pallas_stem_f32(order)
     got = _port_stem(crops, k7, b, order, torch.float32).numpy()
     assert got.shape == want.shape == (2, 56, 56, 64)
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
@@ -238,12 +234,24 @@ def test_stem_general_crop_size_matches_xla_chain(order):
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
 
-def _stem_gemm_model(crops, w2, bias, mean):
+def _tf32(x):
+    """``x`` rounded to TF32 (10 explicit mantissa bits, ties away from
+    zero) on its fp32 bit pattern, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _stem_gemm_model(crops, w2, bias, mean, split="none"):
     """The stem kernel's implicit GEMM (csrc/stem.cu) in plain PyTorch: the
     upscaled image as rows of [col][ch] with 3 zero columns each side, conv
     pixel (r, c) taking, for each ky, the 24 elements from 6c of padded
     row 2r + ky, against weights whose 21 (kx, ch) rows per ky are padded
-    with 3 zero rows."""
+    with 3 zero rows.
+
+    ``split`` models the fp32 kernel's operands: "none" (fp32 products),
+    "tf32" (each operand rounded to TF32 once) or "3xtf32" (hi = tf32(x),
+    lo = tf32(x - hi), products a_lo b_hi + a_hi b_lo + a_hi b_hi); the
+    rounded products are summed in float64."""
     n, s = crops.shape[:2]
     u = upscale2x(crops - torch.tensor(mean)).to(w2.dtype).float()
     rows = F.pad(u, (0, 0, 3, 3, 3, 3)).reshape(n, 2 * s + 6, -1)
@@ -253,30 +261,89 @@ def _stem_gemm_model(crops, w2, bias, mean):
     a = sel[..., 6 * c[:, None] + j[None, :]]          # [N, S, 7, S, 24]
     a = a.permute(0, 1, 3, 2, 4).reshape(n, s, s, 7 * 24)
     wpad = F.pad(w2.float().reshape(7, 21, 64), (0, 0, 0, 3)).reshape(168, 64)
-    y = F.relu(a @ wpad + bias).permute(0, 3, 1, 2)
+    if split == "none":
+        y = a @ wpad
+    elif split == "tf32":
+        y = (_tf32(a).double() @ _tf32(wpad).double()).float()
+    elif split == "3xtf32":
+        a_hi, w_hi = _tf32(a), _tf32(wpad)
+        a_lo, w_lo = _tf32(a - a_hi), _tf32(wpad - w_hi)
+        y = (a_lo.double() @ w_hi.double() + a_hi.double() @ w_lo.double()
+             + a_hi.double() @ w_hi.double()).float()
+    else:
+        raise ValueError(split)
+    y = F.relu(y + bias).permute(0, 3, 1, 2)
     y = F.max_pool2d(y, 3, stride=2, padding=1)
     return y.permute(0, 2, 3, 1).to(w2.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_stem_f32(order):
+    """The Pallas f32 stem in interpret mode on :func:`_stem_inputs`."""
+    crops, k7, b = _stem_inputs()
+    jw, jb = jstem.prepare_stem_weights(jnp.asarray(k7), jnp.asarray(b),
+                                        channel_order=order,
+                                        dtype=jnp.float32)
+    return np.asarray(jstem.stem_fused(
+        jstem.prepare_stem_input(jnp.asarray(crops),
+                                 JBackboneSpec().mean_rgb),
+        jw, jb, dtype=jnp.float32, interpret=True))
+
+
+def _split_model_stem(order, split):
+    crops, k7, b = _stem_inputs()
+    w2, bias = tstem.prepare_stem_weights(
+        torch.from_numpy(k7.transpose(3, 2, 0, 1).copy()),
+        torch.from_numpy(b), order, torch.float32)
+    return _stem_gemm_model(torch.from_numpy(crops), w2, bias,
+                            JBackboneSpec().mean_rgb, split).numpy()
 
 
 @pytest.mark.parametrize("order", ["rgb", "bgr"])
 def test_stem_kernel_gemm_layout_matches_pallas_f32(order):
     """The kernel's K layout (7 ky x 24, zero-padded taps) against the
     Pallas stem in interpret mode, f32, atol 1e-3 (tests/test_pallas.py)."""
-    crops, k7, b = _stem_inputs()
-    jw, jb = jstem.prepare_stem_weights(jnp.asarray(k7), jnp.asarray(b),
-                                        channel_order=order,
-                                        dtype=jnp.float32)
-    want = np.asarray(jstem.stem_fused(
-        jstem.prepare_stem_input(jnp.asarray(crops),
-                                 JBackboneSpec().mean_rgb),
-        jw, jb, dtype=jnp.float32, interpret=True))
-    w2, bias = tstem.prepare_stem_weights(
-        torch.from_numpy(k7.transpose(3, 2, 0, 1).copy()),
-        torch.from_numpy(b), order, torch.float32)
-    got = _stem_gemm_model(torch.from_numpy(crops), w2, bias,
-                           JBackboneSpec().mean_rgb).numpy()
+    want = _pallas_stem_f32(order)
+    got = _split_model_stem(order, "none")
     assert got.shape == want.shape == (2, 56, 56, 64)
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """The model's TF32 rounding keeps 10 explicit mantissa bits and
+    rounds a tie away from zero, for either sign; hi + lo is within 2^-22
+    of x."""
+    one = 1.0 + 2.0 ** -10                 # a TF32 value
+    half = 2.0 ** -11                      # half its last place
+    x = torch.tensor([one, one + half, one + half * 0.99, -(one + half),
+                      1.0 + half], dtype=torch.float32)
+    want = torch.tensor([one, one + 2 * half, one, -(one + 2 * half),
+                         1.0 + 2 * half], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    hi = _tf32(x)
+    lo = _tf32(x - hi)                     # the split keeps ~22 bits
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= 2.0 ** -22 * x.double().abs()).all()
+
+
+@pytest.mark.parametrize("order", ["rgb", "bgr"])
+def test_stem_3xtf32_model_matches_pallas_f32(order):
+    """The fp32 kernel's arithmetic (3xTF32 products, csrc/stem.cu) against
+    the Pallas f32 stem in interpret mode: atol 1e-3 and max-rel <= 1e-5,
+    the card's gate for the kernel against stem_plain (chip_smoke.py)."""
+    want = _pallas_stem_f32(order)
+    got = _split_model_stem(order, "3xtf32")
+    assert got.shape == want.shape == (2, 56, 56, 64)
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-5
+
+
+def test_stem_single_tf32_model_fails_the_card_gate():
+    """One TF32 rounding of each operand (no lo parts) is off by more than
+    the 1e-5 max-rel gate, so the gate tells plain TF32 from 3xTF32."""
+    want = _pallas_stem_f32("rgb")
+    got = _split_model_stem("rgb", "tf32")
+    assert np.abs(got - want).max() / np.abs(want).max() > 1e-5
 
 
 def test_stem_wrapper_rejects_bad_shapes():
