@@ -64,7 +64,16 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      (the weights, the BN stats and ``predict_clips`` move), save /
      restore / ``MimamoAPI(checkpoint_dir=...)``, ``evaluate_affwild2``,
      and the step times;
- 11. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
+ 11. ``probes``: the layer1 and layer2 probes through their entry points
+     (``python -m mimamo_tpu_torch.bench.layer1_probe`` / ``layer2_probe``
+     at 384 frames, one timed batch each, the layer2 probe's three variants
+     checked against cuDNN at 4 frames), with the launch counts of that
+     run; the dots kernels (``layer1_dots``, the layer2 probe's dots-only
+     block) against their plain versions at 384, 1 and 3 frames (max-rel <
+     2e-2, finite everywhere), their times, bounds and the same dot
+     sequence as bf16 ``torch.matmul`` calls (the yardstick); the cuDNN
+     layer1 stage against the dots kernel;
+ 12. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
      gate's bound under ``tol_max_rel`` or ``tol_abs``) and, last, the
      device line.
 
@@ -78,7 +87,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -89,11 +97,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from mimamo_tpu_torch import (StreamingSession, api, checkpoints, phase,
                               preprocess, pyramid, train, weights)
+from mimamo_tpu_torch.bench import layer1_probe, layer2_probe
+from mimamo_tpu_torch.bench._timing import card, time_ms
 from mimamo_tpu_torch.config import BackboneSpec, MimamoConfig, TrainSpec
 from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.data.eval import evaluate_affwild2
-from mimamo_tpu_torch.kernels import (_build, layer2_kernel, phase_kernel,
-                                      stem_kernel)
+from mimamo_tpu_torch.kernels import (_build, layer1_dots_kernel,
+                                      layer2_kernel, phase_kernel, stem_kernel)
 from mimamo_tpu_torch.kernels.layer2_kernel import C_IN, OUT_W, WIDTH
 from mimamo_tpu_torch.preprocess import (for_backbone,
                                          merge_window_predictions,
@@ -157,35 +167,6 @@ STEP_LOSS_ATOL = 1e-5
 STEP_GRAD_REL_TOL = 3e-4
 STEP_BN_ATOL = 1e-5
 STEP_PARAM_ATOL = 1e-6
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, warmup: int = 2, iters: int = 5, batch: int = 10) -> float:
-    """Time of one run of ``fn`` on the current stream: the median over
-    ``iters`` batches of ``batch`` back-to-back runs between two CUDA
-    events, after ``warmup`` runs. Back to back, so that the card is not
-    idle while the host prepares a launch and a short kernel's time is
-    the card's, not the host's."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / batch)
-    return statistics.median(times)
 
 
 def max_rel(got, want) -> float:
@@ -588,7 +569,9 @@ def median_stages(runs: list) -> dict:
 KERNELS = {"phase_diff_resize": phase_kernel.KERNEL,
            "stem_fused": stem_kernel.KERNEL,
            "layer2_fused": layer2_kernel.KERNEL,
-           "stem_fused[f32]": stem_kernel.KERNEL_F32}
+           "stem_fused[f32]": stem_kernel.KERNEL_F32,
+           "layer1_dots": layer1_dots_kernel.KERNEL,
+           "layer2_g4_dots": layer2_kernel.KERNEL_DOTS}
 
 
 def expected_launches(forwards: int = 1, classify: int = 0,
@@ -602,7 +585,8 @@ def expected_launches(forwards: int = 1, classify: int = 0,
     return {"phase_diff_resize": forwards,
             "stem_fused": 0 if fp32 else backbone,
             "layer2_fused": 0 if fp32 else 4 * backbone,
-            "stem_fused[f32]": backbone if fp32 else 0}
+            "stem_fused[f32]": backbone if fp32 else 0,
+            "layer1_dots": 0, "layer2_g4_dots": 0}
 
 
 def counted(fn, expected: dict = None):
@@ -1286,6 +1270,137 @@ def train_ckpt_ok(ckpt: str, steps: int) -> bool:
             and os.path.exists(ckpt + ".metrics.jsonl"))
 
 
+# -- the probes ----------------------------------------------------------------
+
+PROBE_ITERS = 1          # timed batches of 10 calls in each probe's run
+PROBE_CHECK_FRAMES = 4   # the layer2 probe's check, batched at 4 a step
+
+
+def dots_library(s: torch.Tensor, blocks, grid_w: int) -> torch.Tensor:
+    """The dot sequence of ``dots_block_plain`` as bf16 ``torch.matmul``
+    calls (cuBLAS) and bf16 elementwise ops: the yardstick of the dots
+    kernels, never called by the port. ``blocks``: (w1, w2 [3, 3W, W],
+    w3, b1, b2, b3, wd, bd) pre-transposed to [K, N] bf16."""
+    p = s.shape[1]
+    for w1, w2, w3, b1, b2, b3, wd, bd in blocks:
+        y1 = torch.relu(torch.matmul(s, w1) + b1)
+        a = torch.nn.functional.pad(torch.cat([y1] * 3, dim=2),
+                                    (0, 0, grid_w, grid_w))
+        acc = sum(torch.matmul(a[:, dy * grid_w:dy * grid_w + p], w2[dy])
+                  for dy in range(3))
+        y2 = torch.relu(acc + b2)
+        res = s if wd is None else torch.matmul(s, wd) + bd
+        s = torch.relu(torch.matmul(y2, w3) + b3 + res)
+    return s
+
+
+def library_operands(blocks) -> list:
+    def t(w):
+        return None if w is None else w.T.contiguous()
+
+    def b(v):
+        return None if v is None else v.to(torch.bfloat16)
+
+    return [(t(blk.w1), t(blk.w2).reshape(3, -1, blk.w2.shape[0]), t(blk.w3),
+             b(blk.b1), b(blk.b2), b(blk.b3), t(blk.wd),
+             0 if blk.wd is not None and blk.bd is None else b(blk.bd))
+            for blk in blocks]
+
+
+def check_dots(name, kernel, plain, inputs, blocks) -> dict:
+    """``kernel`` against ``plain`` on the card at the probe's 384 frames
+    and at N = 1 and 3: max-rel < BF16_REL_TOL, finite everywhere. Returns
+    :func:`errors` at 384 frames."""
+    errs = {}
+    for n in (1, 3, B * T):
+        x = inputs(n)
+        got, want = kernel(x, blocks), plain(x, blocks)
+        torch.cuda.synchronize()
+        errs[n] = errors(got, want)
+        finite = bool(torch.isfinite(got.float()).all())
+        if not (errs[n]["max_rel_err"] < BF16_REL_TOL and finite):
+            raise AssertionError(f"{name} at N = {n}: {errs[n]}, finite "
+                                 f"{finite} (gate {BF16_REL_TOL})")
+    print(json.dumps({f"{name}_err": errs}), flush=True)
+    return errs[B * T]
+
+
+def check_probes(line: str):
+    """The two probes through their entry points (``main``) at 384 frames,
+    with the launch counts set to 0 just before and read just after; then
+    the dots kernels against their plain versions (384, 1 and 3 frames),
+    their records, and the library layer1 stage against the dots kernel.
+    Returns (records, launches of the probes' runs)."""
+    calls = 2 + PROBE_ITERS * 10      # time_ms: 2 warm-ups + iters x 10
+    variants = 3                      # unrolled, g4, batched at 4 frames
+    expected = dict(expected_launches(0),
+                    layer1_dots=3 * (1 + calls),
+                    layer2_fused=4 * variants * (1 + calls),
+                    layer2_g4_dots=4 * (1 + calls))
+    frames = str(B * T)
+    argv1 = ["--batch-frames", frames, "--iters", str(PROBE_ITERS),
+             "--no-gemm"]
+    argv2 = ["--batch", frames, "--iters", str(PROBE_ITERS), "--dots-only",
+             "--frames", str(PROBE_CHECK_FRAMES)]
+    _, launches = counted(lambda: (layer1_probe.main(argv1),
+                                   layer2_probe.main(argv2)), expected)
+
+    l1_blocks = layer1_dots_kernel.pack_layer1_dots(
+        layer1_probe.dots_weights(), "cuda")
+    _raw, packed = layer2_probe.probe_weights(SEED)
+    l2_weights = layer2_probe.prepare(packed, "cuda")
+    l2_blocks = l2_weights.dots
+    l1_in = lambda n: layer1_probe.inputs(n, SEED, "cuda")
+    l2_in = lambda n: layer2_probe.inputs(n, SEED, "cuda").reshape(
+        n, 28, 2, 28, 2 * C_IN)
+    # one call of each: one launch per bottleneck block
+    _, per_call = counted(
+        lambda: (layer1_dots_kernel.layer1_dots(l1_in(1), l1_blocks),
+                 layer2_probe.layer2_fused_g4(l2_in(1), l2_weights,
+                                              dots_only=True)),
+        dict(expected_launches(0), layer1_dots=3, layer2_g4_dots=4))
+    recs = []
+    for (name, source, replaces, kernel, plain, inputs, blocks, flops,
+         grid_w, repeat) in (
+            ("layer1_dots", "mimamo_tpu_torch/csrc/layer1_dots.cu",
+             "bench/layer1_probe.py:107", layer1_dots_kernel.layer1_dots,
+             layer1_dots_kernel.layer1_dots_plain, l1_in, l1_blocks,
+             layer1_dots_kernel.dot_flops_per_frame(),
+             layer1_dots_kernel.GRID_W,
+             lambda x: torch.cat([x.reshape(x.shape[0], -1, x.shape[-1])]
+                                 * 2, dim=1)[:, :layer1_dots_kernel.P]),
+            ("layer2_g4_dots", "mimamo_tpu_torch/csrc/layer2_dots.cu",
+             "bench/layer2_probe.py:337", layer2_kernel.layer2_dots,
+             layer2_kernel.layer2_dots_plain, l2_in, l2_blocks,
+             layer2_kernel.dots_flops_per_frame(), layer2_kernel.DOTS_GRID_W,
+             lambda x: torch.cat([x[:, :, 0].reshape(x.shape[0], -1, OUT_W)]
+                                 * 2, dim=1)[:, :layer2_kernel.DOTS_P])):
+        errs = check_dots(name, kernel, plain, inputs, blocks)
+        x = inputs(B * T)
+        out = kernel(x, blocks)
+        lib = library_operands(blocks)
+        weights = sum(t.numel() * t.element_size() for blk in blocks
+                      for t in vars(blk).values() if t is not None)
+        rec = record(
+            name, source, replaces, errs, {"tol_max_rel": BF16_REL_TOL},
+            time_ms(lambda: kernel(x, blocks)),
+            time_ms(lambda: plain(x, blocks), batch=2),
+            x.numel() * 2 + out.numel() * 2 + weights, flops * B * T,
+            time_ms(lambda: dots_library(repeat(x), lib, grid_w)))
+        rec["launches"] = launches[name]
+        rec["launches_per_call"] = per_call[name]
+        recs.append(rec)
+
+    x = l1_in(B * T)
+    stage = layer1_probe.stage_blocks(2, "cuda")
+    cudnn = time_ms(lambda: layer1_probe.library_layer1(x, stage))
+    print(json.dumps({"cudnn_layer1_ms": cudnn,
+                      "layer1_dots_ms": recs[0]["ms"],
+                      "cudnn_layer1_over_layer1_dots": cudnn / recs[0]["ms"],
+                      "frames": B * T, "card": line}), flush=True)
+    return recs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1390,6 +1505,13 @@ def main() -> int:
         rec["launches_fp32_forward"] = fp32_launches[rec["name"]]
         rec["launches_train_step"] = train_launches[rec["name"]]
     stem_rec["launches"] = fp32_launches["stem_fused[f32]"]
+
+    # -- the probes -------------------------------------------------------------
+    with torch.no_grad():
+        probe_recs, probe_launches = check_probes(line)
+    for rec in recs:
+        rec["launches_probes"] = probe_launches[rec["name"]]
+    recs += probe_recs
 
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -133,3 +133,4 @@ class Kernel:
 
 P = ctypes.c_void_p    # device pointer or stream handle
 I = ctypes.c_int
+LL = ctypes.c_longlong

@@ -40,6 +40,12 @@ MODULES = (
     "mimamo_tpu_torch.train",
     "mimamo_tpu_torch.data.datasets",
     "mimamo_tpu_torch.data.eval",
+    "mimamo_tpu_torch.kernels.dots_block",
+    "mimamo_tpu_torch.kernels.layer1_dots_kernel",
+    "mimamo_tpu_torch.bench",
+    "mimamo_tpu_torch.bench._timing",
+    "mimamo_tpu_torch.bench.layer1_probe",
+    "mimamo_tpu_torch.bench.layer2_probe",
     "chip_smoke",
 )
 
