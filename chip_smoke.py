@@ -98,12 +98,17 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from mimamo_tpu_torch import (StreamingSession, api, checkpoints, phase,
                               preprocess, pyramid, train, weights)
 from mimamo_tpu_torch.bench import layer1_probe, layer2_probe
-from mimamo_tpu_torch.bench._timing import card, time_ms
+from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
+                                            PEAK_BYTES_PER_S,
+                                            PEAK_FP32_FLOP_PER_S,
+                                            PEAK_TF32_FLOP_PER_S, card,
+                                            max_rel, time_ms)
 from mimamo_tpu_torch.config import BackboneSpec, MimamoConfig, TrainSpec
 from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.data.eval import evaluate_affwild2
 from mimamo_tpu_torch.kernels import (_build, layer1_dots_kernel,
-                                      layer2_kernel, phase_kernel, stem_kernel)
+                                      layer2_dots_kernel, layer2_kernel,
+                                      phase_kernel, stem_kernel)
 from mimamo_tpu_torch.kernels.layer2_kernel import C_IN, OUT_W, WIDTH
 from mimamo_tpu_torch.preprocess import (for_backbone,
                                          merge_window_predictions,
@@ -114,11 +119,6 @@ from mimamo_tpu_torch.runner import Mimamo
 B, T, S = 8, 48, 112          # flagship step: 384 frames of 112^2 crops
 CAPACITY, CHUNK = 8, 16       # streaming step: 8 slots x 16 frames a feed
 SEED = 0
-# Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOP_PER_S = 989e12     # tensor cores, dense
-PEAK_FP32_FLOP_PER_S = 67e12      # outside the tensor cores
-PEAK_TF32_FLOP_PER_S = 495e12     # tensor cores, dense
 PHASE_TOL = 1e-4              # max |kernel - plain|, radians
 BF16_REL_TOL = 2e-2           # max |kernel - plain| / max |plain|
 # Card (bf16) vs CPU (fp32) on one 8-frame clip: bf16 rounding of the
@@ -167,17 +167,6 @@ STEP_LOSS_ATOL = 1e-5
 STEP_GRAD_REL_TOL = 3e-4
 STEP_BN_ATOL = 1e-5
 STEP_PARAM_ATOL = 1e-6
-
-
-def max_rel(got, want) -> float:
-    """max |got - want| / max |want| of two tensors or arrays, on the
-    device of the first tensor among them."""
-    dev = next((x.device for x in (got, want)
-                if isinstance(x, torch.Tensor)), None)
-    got = torch.as_tensor(got, device=dev).float()
-    want = torch.as_tensor(want, device=dev).float()
-    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-12)
-            ).item()
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -571,7 +560,7 @@ KERNELS = {"phase_diff_resize": phase_kernel.KERNEL,
            "layer2_fused": layer2_kernel.KERNEL,
            "stem_fused[f32]": stem_kernel.KERNEL_F32,
            "layer1_dots": layer1_dots_kernel.KERNEL,
-           "layer2_g4_dots": layer2_kernel.KERNEL_DOTS}
+           "layer2_g4_dots": layer2_dots_kernel.KERNEL}
 
 
 def expected_launches(forwards: int = 1, classify: int = 0,
@@ -1276,35 +1265,13 @@ PROBE_ITERS = 1          # timed batches of 10 calls in each probe's run
 PROBE_CHECK_FRAMES = 4   # the layer2 probe's check, batched at 4 a step
 
 
-def dots_library(s: torch.Tensor, blocks, grid_w: int) -> torch.Tensor:
-    """The dot sequence of ``dots_block_plain`` as bf16 ``torch.matmul``
-    calls (cuBLAS) and bf16 elementwise ops: the yardstick of the dots
-    kernels, never called by the port. ``blocks``: (w1, w2 [3, 3W, W],
-    w3, b1, b2, b3, wd, bd) pre-transposed to [K, N] bf16."""
-    p = s.shape[1]
-    for w1, w2, w3, b1, b2, b3, wd, bd in blocks:
-        y1 = torch.relu(torch.matmul(s, w1) + b1)
-        a = torch.nn.functional.pad(torch.cat([y1] * 3, dim=2),
-                                    (0, 0, grid_w, grid_w))
-        acc = sum(torch.matmul(a[:, dy * grid_w:dy * grid_w + p], w2[dy])
-                  for dy in range(3))
-        y2 = torch.relu(acc + b2)
-        res = s if wd is None else torch.matmul(s, wd) + bd
-        s = torch.relu(torch.matmul(y2, w3) + b3 + res)
-    return s
-
-
-def library_operands(blocks) -> list:
-    def t(w):
-        return None if w is None else w.T.contiguous()
-
-    def b(v):
-        return None if v is None else v.to(torch.bfloat16)
-
-    return [(t(blk.w1), t(blk.w2).reshape(3, -1, blk.w2.shape[0]), t(blk.w3),
-             b(blk.b1), b(blk.b2), b(blk.b3), t(blk.wd),
-             0 if blk.wd is not None and blk.bd is None else b(blk.bd))
-            for blk in blocks]
+def bf16_biases(blocks) -> list:
+    """``blocks`` with bf16 biases, for the library yardstick: the dot
+    sequence as bf16 ``torch.matmul`` calls (cuBLAS) and bf16 elementwise
+    ops, never called by the port."""
+    return [dataclasses.replace(blk, **{
+        k: getattr(blk, k).to(torch.bfloat16) for k in ("b1", "b2", "b3", "bd")
+        if getattr(blk, k) is not None}) for blk in blocks]
 
 
 def check_dots(name, kernel, plain, inputs, blocks) -> dict:
@@ -1332,10 +1299,10 @@ def check_probes(line: str):
     their records, and the library layer1 stage against the dots kernel.
     Returns (records, launches of the probes' runs)."""
     calls = 2 + PROBE_ITERS * 10      # time_ms: 2 warm-ups + iters x 10
-    variants = 3                      # unrolled, g4, batched at 4 frames
+    variants = 3                      # checked: unrolled, g4, batched at 4
     expected = dict(expected_launches(0),
                     layer1_dots=3 * (1 + calls),
-                    layer2_fused=4 * variants * (1 + calls),
+                    layer2_fused=4 * (variants + calls),
                     layer2_g4_dots=4 * (1 + calls))
     frames = str(B * T)
     argv1 = ["--batch-frames", frames, "--iters", str(PROBE_ITERS),
@@ -1347,48 +1314,51 @@ def check_probes(line: str):
 
     l1_blocks = layer1_dots_kernel.pack_layer1_dots(
         layer1_probe.dots_weights(), "cuda")
-    _raw, packed = layer2_probe.probe_weights(SEED)
-    l2_weights = layer2_probe.prepare(packed, "cuda")
-    l2_blocks = l2_weights.dots
+    l2_blocks = layer2_probe.prepare(layer2_probe.probe_weights(SEED)[1],
+                                     "cuda").dots
     l1_in = lambda n: layer1_probe.inputs(n, SEED, "cuda")
     l2_in = lambda n: layer2_probe.inputs(n, SEED, "cuda").reshape(
         n, 28, 2, 28, 2 * C_IN)
     # one call of each: one launch per bottleneck block
     _, per_call = counted(
         lambda: (layer1_dots_kernel.layer1_dots(l1_in(1), l1_blocks),
-                 layer2_probe.layer2_fused_g4(l2_in(1), l2_weights,
-                                              dots_only=True)),
+                 layer2_dots_kernel.layer2_dots(l2_in(1), l2_blocks)),
         dict(expected_launches(0), layer1_dots=3, layer2_g4_dots=4))
     recs = []
-    for (name, source, replaces, kernel, plain, inputs, blocks, flops,
-         grid_w, repeat) in (
-            ("layer1_dots", "mimamo_tpu_torch/csrc/layer1_dots.cu",
-             "bench/layer1_probe.py:107", layer1_dots_kernel.layer1_dots,
+    for name, mod, kernel, plain, inputs, blocks, cin, source, replaces in (
+            ("layer1_dots", layer1_dots_kernel, layer1_dots_kernel.layer1_dots,
              layer1_dots_kernel.layer1_dots_plain, l1_in, l1_blocks,
-             layer1_dots_kernel.dot_flops_per_frame(),
-             layer1_dots_kernel.GRID_W,
-             lambda x: torch.cat([x.reshape(x.shape[0], -1, x.shape[-1])]
-                                 * 2, dim=1)[:, :layer1_dots_kernel.P]),
-            ("layer2_g4_dots", "mimamo_tpu_torch/csrc/layer2_dots.cu",
-             "bench/layer2_probe.py:337", layer2_kernel.layer2_dots,
-             layer2_kernel.layer2_dots_plain, l2_in, l2_blocks,
-             layer2_kernel.dots_flops_per_frame(), layer2_kernel.DOTS_GRID_W,
-             lambda x: torch.cat([x[:, :, 0].reshape(x.shape[0], -1, OUT_W)]
-                                 * 2, dim=1)[:, :layer2_kernel.DOTS_P])):
+             layer1_dots_kernel.C_IN, "mimamo_tpu_torch/csrc/layer1_dots.cu",
+             "bench/layer1_probe.py:107"),
+            ("layer2_g4_dots", layer2_dots_kernel,
+             layer2_dots_kernel.layer2_dots,
+             layer2_dots_kernel.layer2_dots_plain, l2_in, l2_blocks,
+             2 * C_IN, "mimamo_tpu_torch/csrc/layer2_dots.cu",
+             "bench/layer2_probe.py:337")):
         errs = check_dots(name, kernel, plain, inputs, blocks)
         x = inputs(B * T)
         out = kernel(x, blocks)
-        lib = library_operands(blocks)
+        lib = bf16_biases(blocks)
         weights = sum(t.numel() * t.element_size() for blk in blocks
                       for t in vars(blk).values() if t is not None)
+        # the bound counts the work the output needs: the live grid
+        # columns, once per distinct value (dots_block.needed_work)
+        flops, rows = mod.needed_work()
+        executed = mod.dot_flops_per_frame() * B * T
         rec = record(
             name, source, replaces, errs, {"tol_max_rel": BF16_REL_TOL},
             time_ms(lambda: kernel(x, blocks)),
             time_ms(lambda: plain(x, blocks), batch=2),
-            x.numel() * 2 + out.numel() * 2 + weights, flops * B * T,
-            time_ms(lambda: dots_library(repeat(x), lib, grid_w)))
-        rec["launches"] = launches[name]
-        rec["launches_per_call"] = per_call[name]
+            int(rows.sum()) * cin * 2 * B * T + out.numel() * 2 + weights,
+            flops * B * T,
+            time_ms(lambda: plain(x, lib, torch.bfloat16)))
+        rec.update(launches=launches[name], launches_per_call=per_call[name],
+                   needed_gflop=flops * B * T / 1e9,
+                   executed_gflop=executed / 1e9,
+                   executed_bound_ms=executed / PEAK_BF16_FLOP_PER_S * 1e3)
+        print(json.dumps({f"{name}_work": {
+            k: rec[k] for k in ("needed_gflop", "executed_gflop", "bound_ms",
+                                "executed_bound_ms", "ms")}}), flush=True)
         recs.append(rec)
 
     x = l1_in(B * T)

@@ -1,5 +1,6 @@
-"""Timing on the card for the probes and ``chip_smoke.py``, and the label
-every measurement carries.
+"""Timing on the card for the probes and ``chip_smoke.py``, the label
+every measurement carries, the card's published peaks and the error
+measure their checks share.
 
 A time is the median over ``iters`` batches of ``batch`` back-to-back
 calls between two CUDA events, after ``warmup`` calls. Back to back, so
@@ -13,6 +14,12 @@ import statistics
 import subprocess
 
 import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOP_PER_S = 989e12     # tensor cores, dense
+PEAK_FP32_FLOP_PER_S = 67e12      # outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12     # tensor cores, dense
 
 
 def card() -> str:
@@ -51,3 +58,14 @@ def time_ms(fn, warmup: int = 2, iters: int = 5, batch: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| / max |want| of two tensors or arrays, on the
+    device of the first tensor among them."""
+    dev = next((x.device for x in (got, want)
+                if isinstance(x, torch.Tensor)), None)
+    got = torch.as_tensor(got, device=dev).float()
+    want = torch.as_tensor(want, device=dev).float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-12)
+            ).item()

@@ -8,8 +8,9 @@ the port's clip steps. Three measurements:
      weights, reported at the analytic 513 GFLOP per 384 frames.
   2. **The layer1_dots kernel** (``kernels/layer1_dots_kernel.py``): the dot
      sequence of a fused layer1 with no tap shifts or masks, a lower bound
-     on any real kernel of that shape, with its executed and analytic
-     GFLOP a frame and its bound at 989 TFLOP/s.
+     on any real kernel of that shape, with its executed, needed and
+     analytic GFLOP a frame and its bound (the needed work at 989
+     TFLOP/s).
   3. **The narrow-GEMM ceiling**: ``torch.matmul`` in bf16 at the dots'
      (K, N) = (64, 64), (256, 64), (192, 64), (64, 256) and a 2048 cube,
      M sized so that each runs about 5 ms at its own bound on this card
@@ -34,13 +35,13 @@ import sys
 import torch
 
 from mimamo_tpu_torch.backbone import FoldedResNet50
-from mimamo_tpu_torch.bench._timing import card, device, time_ms
+from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
+                                            PEAK_BYTES_PER_S, card, device,
+                                            time_ms)
 from mimamo_tpu_torch.kernels import layer1_dots_kernel as l1
 from mimamo_tpu_torch.kernels.layer1_dots_kernel import (BLOCKS, C_IN, IN_HW,
                                                          OUT_W, WIDTH)
 
-PEAK_BF16_FLOP_PER_S = 989e12     # H100 SXM, dense (NVIDIA data sheet)
-PEAK_BYTES_PER_S = 3.35e12
 STAGE_GFLOP_384 = 513.0           # analytic layer1 at 384 frames of 56^2
 GEMM_SHAPES = ((64, 64), (256, 64), (192, 64), (64, 256), (2048, 2048))
 GEMM_TARGET_S = 0.005
@@ -144,11 +145,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"layer1 shapes {tuple(y.shape)}, "
                                  f"{tuple(got.shape)} or non-finite values")
         executed = l1.dot_flops_per_frame() / 1e9
+        needed = l1.needed_work()[0] / 1e9
         analytic = l1.ANALYTIC_GFLOP_PER_FRAME
         if args.cpu:
             emit({"which": "library_layer1", "frames": n, "ok": True})
             emit({"which": "layer1_dots", "frames": n, "ok": True,
                   "executed_gflop_per_frame": executed,
+                  "needed_gflop_per_frame": needed,
                   "analytic_gflop_per_frame": analytic})
             return 0
         with torch.no_grad():
@@ -160,11 +163,12 @@ def main(argv=None) -> int:
         emit({"which": "library_layer1", "frames": n, "ms": lib_ms,
               "tflops": stage_flop / lib_ms / 1e9,
               "us_per_frame": lib_ms / n * 1e3})
-        bound = executed * 1e9 * n / PEAK_BF16_FLOP_PER_S * 1e3
+        bound = needed * 1e9 * n / PEAK_BF16_FLOP_PER_S * 1e3
         emit({"which": "layer1_dots", "frames": n, "ms": dots_ms,
               "tflops_executed": executed * n / dots_ms,
               "us_per_frame": dots_ms / n * 1e3,
               "executed_gflop_per_frame": executed,
+              "needed_gflop_per_frame": needed,
               "analytic_gflop_per_frame": analytic,
               "bound_ms": bound, "bound_by": "operations",
               "share_of_bound": bound / dots_ms,

@@ -6,17 +6,18 @@ one frame a grid step; ``layer2_fused_batched``, frames batched a step;
 ResNet-50 layer2 (4 BN-folded bottlenecks, ``[N, 28, 2, 28, 512]`` ->
 ``[N, 28, 28, 512]`` bf16): here all three run the port's layer2 kernel
 (``kernels/layer2_kernel.layer2_fused``), its weights converted from the
-probe's packing by ``blocks_from_probe_weights``. With ``dots_only``,
-``layer2_fused_g4`` is the dots-only kernel (``layer2_kernel.layer2_dots``):
-the g4 kernel's five dots a block with no shifts, pads or masks, whose
-executed work (4.152 GFLOP a frame) is 2.18x layer2's, so its time is no
-floor of layer2.
+probe's packing by :func:`blocks_from_probe_weights`. With ``dots_only``,
+``layer2_fused_g4`` is the dots-only kernel
+(``kernels/layer2_dots_kernel.py``): the g4 kernel's five dots a block with
+no shifts, pads or masks, whose executed work (4.152 GFLOP a frame) is
+2.18x layer2's, so its time is no floor of layer2.
 
 Numeric check (the probe's own): each variant against the library chain
 (cuDNN bf16 bottlenecks) on seeded inputs, max |d| / max |ref| < 2e-2; it
-raises when one fails. Timing: the library layer2 and each variant at
-``--batch`` frames, and with ``--dots-only`` the dots kernel with its
-bound.
+raises when one fails. Timing at ``--batch`` frames: the library layer2 and
+the port's layer2 kernel, once, since every variant runs it; with
+``--dots-only`` also the dots kernel, with its bound at the work its
+output needs.
 
     python -m mimamo_tpu_torch.bench.layer2_probe [--batch 384] [--dots-only]
         [--variant both|unrolled|g4] [--frames 2 4 8] [--check-only]
@@ -33,19 +34,20 @@ import argparse
 import dataclasses
 import json
 import sys
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from mimamo_tpu_torch.backbone import FoldedResNet50
-from mimamo_tpu_torch.bench._timing import card, device, time_ms
+from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S, card,
+                                            device, max_rel, time_ms)
+from mimamo_tpu_torch.kernels import layer2_dots_kernel as l2d
 from mimamo_tpu_torch.kernels import layer2_kernel as l2
 from mimamo_tpu_torch.kernels.dots_block import DotsBlock
 from mimamo_tpu_torch.kernels.layer2_kernel import (BLOCKS, C_IN, OUT_W,
-                                                    WIDTH)
+                                                    WIDTH, Conv)
 
-PEAK_BF16_FLOP_PER_S = 989e12     # H100 SXM, dense (NVIDIA data sheet)
 LAYER2_GFLOP_384 = 730.0          # layer2 at 384 frames of 28^2 outputs
 CHECK_REL_TOL = 2e-2              # the probe's gate, max |d| / max |ref|
 
@@ -100,9 +102,36 @@ class ProbeWeights:
     dots: Tuple[DotsBlock, ...]
 
 
+def blocks_from_probe_weights(weights: Sequence, dtype=torch.bfloat16,
+                              device=None) -> Tuple[l2.Block, ...]:
+    """The probe's packing ``((wd [256, 512], bd), (w1a [256, 128], _), w1b
+    [3, 512, 128], b1 [4, 1, 128], w2 [4, 3, 384, 128], b2, w3 [4, 128,
+    512], b3)`` (arrays or tensors, ``[K, N]``) -> the
+    ``layer2_kernel.pack_layer2_params`` blocks. Row ``128 dx + c_in`` of
+    ``w2[b, dy]`` becomes OHWI ``[:, dy, dx, c_in]``."""
+    (wd, bd), (w1a, _), w1b, b1, w2, b2, w3, b3 = weights
+    t = lambda a: torch.as_tensor(a).to(device)
+
+    def conv(w, b, stride):
+        return Conv(w.to(dtype).contiguous(),
+                    t(b).to(torch.float32).reshape(-1).contiguous(), stride)
+
+    blocks = []
+    for i in range(BLOCKS):
+        w1 = t(w1a) if i == 0 else t(w1b)[i - 1]
+        blk = {"conv1": conv(w1.T[:, None, None], b1[i], 2 if i == 0 else 1),
+               "conv2": conv(t(w2)[i].reshape(3, 3, WIDTH, WIDTH)
+                             .permute(3, 0, 1, 2), b2[i], 1),
+               "conv3": conv(t(w3)[i].T[:, None, None], b3[i], 1)}
+        if i == 0:
+            blk["downsample"] = conv(t(wd).T[:, None, None], bd, 2)
+        blocks.append(blk)
+    return tuple(blocks)
+
+
 def prepare(packed, dev) -> ProbeWeights:
-    return ProbeWeights(l2.blocks_from_probe_weights(packed, device=dev),
-                        l2.pack_layer2_dots(packed, dev))
+    return ProbeWeights(blocks_from_probe_weights(packed, device=dev),
+                        l2d.pack_layer2_dots(packed, dev))
 
 
 def library_blocks(raw, dev) -> list:
@@ -153,7 +182,7 @@ def layer2_fused_g4(x: torch.Tensor, w: ProbeWeights, dots_only: bool = False
     """The one-block-a-step variant; with ``dots_only`` its dot sequence
     alone, through the dots-only kernel."""
     if dots_only:
-        return l2.layer2_dots(x, w.dots)
+        return l2d.layer2_dots(x, w.dots)
     return layer2_fused(x, w)
 
 
@@ -168,12 +197,6 @@ def variants(which: str = "both", frames=()) -> dict:
         fns[f"batched_f{f}"] = (
             lambda x, w, _f=f: layer2_fused_batched(x, w, frames=_f))
     return fns
-
-
-def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    got, want = got.float(), want.float()
-    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-12)
-            ).item()
 
 
 def inputs(n: int, seed: int, dev) -> torch.Tensor:
@@ -231,7 +254,7 @@ def main(argv=None) -> int:
         x = inputs(nchk, 1, dev).reshape(nchk, 28, 2, 28, 2 * C_IN)
         with torch.no_grad():
             got = layer2_fused_g4(x, w, dots_only=True)
-            want = l2.layer2_dots_plain(x, w.dots)
+            want = l2d.layer2_dots_plain(x, w.dots)
         err = max_rel(got, want)
         finite = bool(torch.isfinite(got.float()).all())
         emit({"check": "g4_dots_vs_plain", "frames": nchk, "max_rel": err,
@@ -245,8 +268,10 @@ def main(argv=None) -> int:
     n = args.batch
     x = inputs(n, 2, dev)
     x5 = x.reshape(n, 28, 2, 28, 2 * C_IN)
-    rows = [("library", lambda: library_layer2(x, lib))]
-    rows += [(name, lambda _f=fn: _f(x5, w)) for name, fn in fns.items()]
+    # every variant is the port's one layer2 kernel: timed once
+    rows = [("library", lambda: library_layer2(x, lib)),
+            ("fused (" + ", ".join(fns) + ")",
+             lambda: layer2_fused(x5, w))]
     gflop = LAYER2_GFLOP_384 * n / 384
     with torch.no_grad():
         for name, fn in rows:
@@ -256,11 +281,13 @@ def main(argv=None) -> int:
         if args.dots_only:
             ms = time_ms(lambda: layer2_fused_g4(x5, w, dots_only=True),
                          iters=args.iters)
-            executed = l2.dots_flops_per_frame() * n
-            bound = executed / PEAK_BF16_FLOP_PER_S * 1e3
+            executed = l2d.dot_flops_per_frame() * n
+            needed = l2d.needed_work()[0] * n
+            bound = needed / PEAK_BF16_FLOP_PER_S * 1e3
             emit({"layer2": "g4_dots_only", "frames": n, "ms": ms,
                   "tflops_executed": executed / ms / 1e9,
-                  "executed_gflop_per_frame": l2.dots_flops_per_frame() / 1e9,
+                  "executed_gflop_per_frame": executed / n / 1e9,
+                  "needed_gflop_per_frame": needed / n / 1e9,
                   "bound_ms": bound, "bound_by": "operations",
                   "share_of_bound": bound / ms,
                   "executed_over_layer2": executed / (gflop * 1e9)})

@@ -11,8 +11,11 @@
 // identity residual. The last block writes grid rows 1..56, columns
 // 0..55.
 //
-// Bound on the H100: operations, 1.581 GFLOP executed a frame (0.614 ms
-// at 384 frames at 989 TFLOP/s) against 154 MB in and 617 MB out.
+// Bound on the H100: operations. The output needs 1.212 GFLOP a frame
+// (0.471 ms at 384 frames at 989 TFLOP/s) against 135 MB in and 617 MB
+// out; the kernel executes the probe's 1.581 (0.614 ms): it also computes
+// grid columns 56..63, which never reach the output, and the products of
+// the repeated rows (layer1_dots_kernel.needed_work).
 #include "dots_block.cuh"
 
 extern "C" int mimamo_layer1_dots_block(

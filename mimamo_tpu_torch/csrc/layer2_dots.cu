@@ -7,8 +7,8 @@
 // touched.
 //
 // Replaces the TPU kernel layer2_fused_g4(dots_only=True)
-// (bench/layer2_probe.py, body make_kernel_dots); wrapper: layer2_dots in
-// kernels/layer2_kernel.py. Block 0 reads the even-row plane of the
+// (bench/layer2_probe.py, body make_kernel_dots); wrapper:
+// kernels/layer2_dots_kernel.py. Block 0 reads the even-row plane of the
 // [N, 28, 2, 28, 512] input, all 512 lanes, through the row map (rows of
 // 28 pixels 2 x 28 pixels apart, repeated after 784 positions); blocks
 // 1-3 read the stored [N, 960, 512] state. One repair against the probe:
@@ -16,9 +16,13 @@
 // so its rows 0-2 and 25-27 are undefined). The last block writes grid
 // rows 1..28, columns 1..28.
 //
-// Bound on the H100: operations, 4.152 GFLOP executed a frame (1.612 ms at
-// 384 frames at 989 TFLOP/s), 2.18x layer2's own 1.90 GFLOP: the padded
-// grid, K = 512 in block 0 and the projection in every block.
+// Bound on the H100: operations. The output needs 3.313 GFLOP a frame
+// (1.286 ms at 384 frames at 989 TFLOP/s); the kernel executes the
+// probe's 4.152 (1.612 ms), with grid columns 0 and 29..31, which never
+// reach the output, and the products of the repeated plane positions
+// (layer2_dots_kernel.needed_work). Executed, that is 2.18x layer2's own
+// 1.90 GFLOP: the padded grid, K = 512 in block 0 and the projection in
+// every block.
 #include "dots_block.cuh"
 
 extern "C" int mimamo_layer2_dots_block(

@@ -18,12 +18,18 @@ these dots and more. ``[N, 56, 56, 64] -> [N, 56, 56, 256]`` bf16:
 
 fp32 accumulation, bf16 at y1, y2 and x. The kernel is ``csrc/layer1_dots.cu``
 (``csrc/dots_block.cuh``), one launch per block.
+
+Grid columns 56..63 never reach the output (conv2 shifts by grid rows
+only), nor do the products of the repeated input rows that equal earlier
+ones: :func:`needed_work` counts what the output needs (1.212 GFLOP a
+frame), :func:`dot_flops_per_frame` what the probe executes (1.581).
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import dots_block
@@ -49,6 +55,15 @@ def dot_flops_per_frame() -> float:
     fl += 2.0 * BLOCKS * 3 * P * (3 * WIDTH) * WIDTH  # conv2, 3 dots K = 192
     fl += 2.0 * BLOCKS * P * WIDTH * OUT_W           # conv3
     return fl
+
+
+def needed_work() -> Tuple[float, np.ndarray]:
+    """The dot FLOPs a frame the output needs, and the mask of the 3,136
+    input pixels it reads (``dots_block.needed_work``)."""
+    dims = [(C_IN if b == 0 else OUT_W, WIDTH, OUT_W, b == 0)
+            for b in range(BLOCKS)]
+    return dots_block.needed_work(np.arange(P) % (IN_HW * IN_HW), GRID_W,
+                                  CROP, dims)
 
 
 def pack_layer1_dots(weights: Sequence, device=None) -> Tuple[DotsBlock, ...]:
@@ -83,17 +98,13 @@ def _check(x: torch.Tensor, blocks: Tuple[DotsBlock, ...]) -> None:
                             WIDTH, OUT_W)
 
 
-def layer1_dots_plain(x: torch.Tensor, blocks: Tuple[DotsBlock, ...]
-                      ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, with its rounding points."""
-    n = x.shape[0]
-    flat = x.reshape(n, IN_HW * IN_HW, C_IN)
+def layer1_dots_plain(x: torch.Tensor, blocks: Tuple[DotsBlock, ...],
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, with its rounding points
+    (``dtype``: see ``dots_block.dots_block_plain``)."""
+    flat = x.reshape(x.shape[0], IN_HW * IN_HW, C_IN)
     s = torch.cat([flat, flat[:, :P - IN_HW * IN_HW]], dim=1)
-    for blk in blocks:
-        s = dots_block.dots_block_plain(s, blk, GRID_W)
-    rows, cols, r0, c0 = CROP
-    return s.reshape(n, GRID_H, GRID_W, OUT_W)[
-        :, r0:r0 + rows, c0:c0 + cols].contiguous()
+    return dots_block.chain_plain(s, blocks, GRID_H, GRID_W, CROP, dtype)
 
 
 def source_rows() -> Tuple[dots_block.RowMap, ...]:
@@ -115,18 +126,4 @@ def layer1_dots(x: torch.Tensor, blocks: Tuple[DotsBlock, ...]
     _check(x, blocks)
     if x.device.type == "cpu":
         return layer1_dots_plain(x, blocks)
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
-        raise ValueError(f"the layer1_dots kernel takes bf16 on a CUDA "
-                         f"device, got {x.dtype} on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous (NHWC)")
-    n = x.shape[0]
-    src = x
-    for b, (blk, rows) in enumerate(zip(blocks, source_rows())):
-        last = b == len(blocks) - 1
-        out = torch.empty((n, IN_HW, IN_HW, OUT_W) if last
-                          else (n, P, OUT_W), dtype=x.dtype, device=x.device)
-        dots_block.launch(KERNEL, src, rows, blk, out,
-                          CROP if last else (0, 0, 0, 0))
-        src = out
-    return src
+    return dots_block.run(KERNEL, x, blocks, source_rows(), P, CROP)

@@ -13,27 +13,19 @@ The kernel is ``csrc/layer2.cu``: one launch per bottleneck block (4 per
 call), each CTA computing conv1 -> conv2 -> conv3 (+ block 0's projection)
 for 4 output rows of a frame with wgmma and TMA, y1 and y2 kept in shared
 memory. It takes output widths W <= 31.
-
-The layer2 probe (``bench/layer2_probe.py``) packs the same weights its own
-way; :func:`blocks_from_probe_weights` converts them. Its dots-only kernel
-(``layer2_fused_g4(dots_only=True)``) is :func:`layer2_dots` here, a kernel
-of its own (``csrc/layer2_dots.cu``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from . import dots_block
 from ._build import I, P, Kernel
-from .dots_block import DotsBlock
 
 KERNEL = Kernel("mimamo_layer2_block", [P] * 10 + [I, I, I, I, P])
-KERNEL_DOTS = Kernel("mimamo_layer2_dots_block", dots_block.ARGTYPES)
 BLOCKS, C_IN, WIDTH, OUT_W = 4, 256, 128, 512
 MAX_OUT_W = 31          # the kernel's padded grid has row stride 32
 
@@ -150,133 +142,3 @@ def layer2_fused(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
                n, h, w, x.shape[3], stream)
         x = out
     return x
-
-
-def blocks_from_probe_weights(weights: Sequence, dtype=torch.bfloat16,
-                              device=None) -> Tuple[Block, ...]:
-    """The layer2 probe's packing ``((wd [256, 512], bd), (w1a [256, 128],
-    _), w1b [3, 512, 128], b1 [4, 1, 128], w2 [4, 3, 384, 128], b2, w3
-    [4, 128, 512], b3)`` (arrays or tensors, K-major: ``[K, N]``) -> the
-    :func:`pack_layer2_params` blocks. Row ``128 dx + c_in`` of
-    ``w2[b, dy]`` becomes OHWI ``[:, dy, dx, c_in]``."""
-    (wd, bd), (w1a, _), w1b, b1, w2, b2, w3, b3 = weights
-    t = lambda a: torch.as_tensor(a).to(device)
-
-    def conv(w, b, stride):
-        return Conv(w.to(dtype).contiguous(),
-                    t(b).to(torch.float32).reshape(-1).contiguous(), stride)
-
-    blocks = []
-    for i in range(BLOCKS):
-        w1 = t(w1a) if i == 0 else t(w1b)[i - 1]
-        blk = {"conv1": conv(w1.T[:, None, None], b1[i], 2 if i == 0 else 1),
-               "conv2": conv(t(w2)[i].reshape(3, 3, WIDTH, WIDTH)
-                             .permute(3, 0, 1, 2), b2[i], 1),
-               "conv3": conv(t(w3)[i].T[:, None, None], b3[i], 1)}
-        if i == 0:
-            blk["downsample"] = conv(t(wd).T[:, None, None], bd, 2)
-        blocks.append(blk)
-    return tuple(blocks)
-
-
-# -- the probe's dots-only kernel -------------------------------------------
-
-DOTS_GRID_H, DOTS_GRID_W = 30, 32      # padded 28 x 28 grid, row stride 32
-DOTS_P = DOTS_GRID_H * DOTS_GRID_W      # 960 positions a frame
-DOTS_CROP = (28, 28, 1, 1)              # output: grid rows and columns 1..28
-PLANE = 28 * 28                         # block 0's positions, then repeated
-
-
-def dots_flops_per_frame() -> float:
-    """FLOPs :func:`layer2_dots` executes a frame (4.152 GFLOP, 2.18x
-    layer2's 1.90: the padded grid, K = 512 in block 0 and the projection
-    in every block)."""
-    per_block = (OUT_W * WIDTH + 3 * 3 * WIDTH * WIDTH + WIDTH * OUT_W
-                 + OUT_W * OUT_W)
-    return 2.0 * BLOCKS * DOTS_P * per_block
-
-
-def pack_layer2_dots(weights: Sequence, device=None
-                     ) -> Tuple[DotsBlock, ...]:
-    """The probe's packing (see :func:`blocks_from_probe_weights`) -> the
-    four dots-only blocks as ``layer2_fused_g4`` pads them: block 0's conv1
-    and the projection take all 512 lanes (rows 256..511 zero), and every
-    block applies block 0's projection."""
-    (wd, bd), (w1a, _), w1b, b1, w2, b2, w3, b3 = weights
-    wd, bd, w1a, w1b, b1, w2, b2, w3, b3 = map(
-        torch.as_tensor, (wd, bd, w1a, w1b, b1, w2, b2, w3, b3))
-    pad = OUT_W - C_IN
-
-    def mat(w):
-        return w.to(device=device, dtype=torch.bfloat16).contiguous()
-
-    def vec(b):
-        return b.to(device=device, dtype=torch.float32).reshape(-1).contiguous()
-
-    w1p = torch.cat([F.pad(w1a, (0, 0, 0, pad))[None], w1b])
-    wdp = mat(F.pad(wd, (0, 0, 0, pad)).T)
-    return tuple(DotsBlock(
-        w1=mat(w1p[b].T), w2=mat(w2[b].permute(2, 0, 1).reshape(WIDTH, -1)),
-        w3=mat(w3[b].T), b1=vec(b1[b]), b2=vec(b2[b]), b3=vec(b3[b]),
-        wd=wdp, bd=vec(bd)) for b in range(BLOCKS))
-
-
-def _check_dots(x: torch.Tensor, blocks: Tuple[DotsBlock, ...]) -> None:
-    if x.dim() != 5 or tuple(x.shape[1:]) != (28, 2, 28, 2 * C_IN):
-        raise ValueError(f"expected [N, 28, 2, 28, 512] input, got "
-                         f"{tuple(x.shape)}")
-    dots_block.check_blocks(blocks, x.device, (OUT_W,) * BLOCKS, WIDTH,
-                            OUT_W)
-
-
-def layer2_dots_plain(x: torch.Tensor, blocks: Tuple[DotsBlock, ...]
-                      ) -> torch.Tensor:
-    """The dots kernel's function in plain PyTorch, with its rounding
-    points: the even-row plane, all 512 lanes, repeated to 960 positions."""
-    n = x.shape[0]
-    plane = x[:, :, 0].reshape(n, PLANE, OUT_W)
-    s = torch.cat([plane, plane], dim=1)[:, :DOTS_P]
-    for blk in blocks:
-        s = dots_block.dots_block_plain(s, blk, DOTS_GRID_W)
-    rows, cols, r0, c0 = DOTS_CROP
-    return s.reshape(n, DOTS_GRID_H, DOTS_GRID_W, OUT_W)[
-        :, r0:r0 + rows, c0:c0 + cols].contiguous()
-
-
-def dots_source_rows() -> Tuple[dots_block.RowMap, ...]:
-    """Each block's row map: block 0 reads the even-row plane of the
-    ``[N, 28, 2, 28, 512]`` input (rows of 28 pixels, 2 x 28 pixels apart),
-    repeated after 784 positions; blocks 1-3 the stored ``[N, 960, 512]``
-    state."""
-    row = 28 * OUT_W
-    return ((dots_block.RowMap(28 * 2 * row, PLANE, 28, 2 * row, OUT_W),)
-            + (dots_block.contiguous_rows(DOTS_P, OUT_W),) * (BLOCKS - 1))
-
-
-def layer2_dots(x: torch.Tensor, blocks: Tuple[DotsBlock, ...]
-                ) -> torch.Tensor:
-    """The probe's dots-only layer2, ``[N, 28, 2, 28, 512]`` bf16 ->
-    ``[N, 28, 28, 512]`` bf16, with y1 zero outside the grid (the probe
-    leaves its conv2 halo unwritten).
-
-    ``blocks``: :func:`pack_layer2_dots` output. A CUDA tensor goes through
-    the kernel (4 launches); a CPU tensor through :func:`layer2_dots_plain`.
-    """
-    _check_dots(x, blocks)
-    if x.device.type == "cpu":
-        return layer2_dots_plain(x, blocks)
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
-        raise ValueError(f"the layer2 dots kernel takes bf16 on a CUDA "
-                         f"device, got {x.dtype} on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    n = x.shape[0]
-    src = x
-    for b, (blk, rows) in enumerate(zip(blocks, dots_source_rows())):
-        last = b == len(blocks) - 1
-        out = torch.empty((n, 28, 28, OUT_W) if last else (n, DOTS_P, OUT_W),
-                          dtype=x.dtype, device=x.device)
-        dots_block.launch(KERNEL_DOTS, src, rows, blk, out,
-                          DOTS_CROP if last else (0, 0, 0, 0))
-        src = out
-    return src

@@ -42,6 +42,7 @@ MODULES = (
     "mimamo_tpu_torch.data.eval",
     "mimamo_tpu_torch.kernels.dots_block",
     "mimamo_tpu_torch.kernels.layer1_dots_kernel",
+    "mimamo_tpu_torch.kernels.layer2_dots_kernel",
     "mimamo_tpu_torch.bench",
     "mimamo_tpu_torch.bench._timing",
     "mimamo_tpu_torch.bench.layer1_probe",

@@ -19,12 +19,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from mimamo_tpu_torch.bench import layer1_probe, layer2_probe
+from mimamo_tpu_torch.kernels import dots_block
 from mimamo_tpu_torch.kernels import layer1_dots_kernel as l1
-from mimamo_tpu_torch.kernels import layer2_kernel as l2
+from mimamo_tpu_torch.kernels import layer2_dots_kernel as l2d
 
 REPO = Path(__file__).resolve().parent.parent
 N = 2
@@ -194,10 +196,10 @@ def test_row_maps_give_the_plain_inputs():
                        torch.cat([flat, flat[:, :576]], dim=1))
     x5 = torch.randn((2, 28, 2, 28, 512)).to(torch.bfloat16)
     plane = x5[:, :, 0].reshape(2, 784, 512)
-    rows2 = l2.dots_source_rows()
-    assert torch.equal(gather_rows(x5, rows2[0], l2.DOTS_P),
+    rows2 = l2d.source_rows()
+    assert torch.equal(gather_rows(x5, rows2[0], l2d.P),
                        torch.cat([plane, plane], dim=1)[:, :960])
-    for rows_b, p, c in ((rows[1], l1.P, 256), (rows2[1], l2.DOTS_P, 512)):
+    for rows_b, p, c in ((rows[1], l1.P, 256), (rows2[1], l2d.P, 512)):
         state = torch.randn((3, p, c))
         assert torch.equal(gather_rows(state, rows_b, p), state)
 
@@ -208,7 +210,8 @@ def test_probe_weight_layouts():
     blocks pad block 0's conv1 and the projection to 512 lanes and apply
     the projection in every block."""
     _raw, packed = layer2_probe.probe_weights(0)
-    blocks = l2.blocks_from_probe_weights(packed, dtype=torch.float32)
+    blocks = layer2_probe.blocks_from_probe_weights(packed,
+                                                    dtype=torch.float32)
     w2 = packed[4]
     for b, dy, dx, ci, co in ((0, 0, 0, 0, 0), (1, 2, 1, 5, 77),
                               (3, 1, 2, 127, 3)):
@@ -218,7 +221,7 @@ def test_probe_weight_layouts():
     assert blocks[0]["conv1"].stride == blocks[0]["downsample"].stride == 2
     assert torch.equal(blocks[0]["downsample"].weight[:, 0, 0],
                        torch.from_numpy(packed[0][0]).T)
-    dots = l2.pack_layer2_dots(packed)
+    dots = l2d.pack_layer2_dots(packed)
     assert not dots[0].w1[:, 256:].any() and dots[0].w1[:, :256].any()
     assert all(blk.wd is dots[0].wd for blk in dots)
     assert not dots[0].wd[:, 256:].any()
@@ -232,12 +235,68 @@ def test_probe_weight_layouts():
 def test_executed_work():
     """The work the kernels execute, as the probes count it."""
     assert l1.dot_flops_per_frame() == pytest.approx(1.581e9, rel=1e-3)
-    assert l2.dots_flops_per_frame() == pytest.approx(4.152e9, rel=1e-3)
-    assert l2.dots_flops_per_frame() / 1.90e9 == pytest.approx(2.185,
+    assert l2d.dot_flops_per_frame() == pytest.approx(4.152e9, rel=1e-3)
+    assert l2d.dot_flops_per_frame() / 1.90e9 == pytest.approx(2.185,
                                                                 rel=1e-3)
     for k, n in layer1_probe.GEMM_SHAPES:
         m = layer1_probe.gemm_rows(k, n)
         assert m % 256 == 0 and m > 0
+
+
+def _live_grid_flops(grid_h, cols, dims):
+    """The dot FLOPs a frame on a grid whose input rows are all distinct:
+    ``cols`` live grid columns; every block but the last on all ``grid_h``
+    rows, the last on the ``grid_h - 2`` output rows; conv1 on all rows;
+    conv2 skips the two rows whose dy neighbour is the halo, except in the
+    last block, whose neighbours all lie in the grid."""
+    fl = 0.0
+    for b, (cin, w, out, proj) in enumerate(dims):
+        last = b == len(dims) - 1
+        r = grid_h - 2 if last else grid_h
+        fl += 2.0 * r * cols * (w * out + (cin * out if proj else 0))
+        fl += 2.0 * (3 * r - (0 if last else 2)) * cols * 3 * w * w
+        fl += 2.0 * grid_h * cols * cin * w
+    return fl
+
+
+def _dots_case(mod):
+    """(blocks, input shape, plain version) of a dots module."""
+    if mod is l1:
+        return (l1.pack_layer1_dots(layer1_probe.dots_weights()),
+                (1, 56, 56, 64), l1.layer1_dots_plain)
+    return (l2d.pack_layer2_dots(layer2_probe.probe_weights(0)[1]),
+            (1, 28, 2, 28, 512), l2d.layer2_dots_plain)
+
+
+@pytest.mark.parametrize("mod", [l1, l2d], ids=["layer1", "layer2"])
+def test_needed_work_without_repeats_is_the_live_grid(mod):
+    """``dots_block.needed_work`` on distinct input rows counts the live
+    columns and rows by hand; the repeated rows only take work away."""
+    dims = [(blk.w1.shape[1], blk.w1.shape[0], blk.w3.shape[0],
+             blk.wd is not None) for blk in _dots_case(mod)[0]]
+    distinct, rows = dots_block.needed_work(np.arange(mod.P), mod.GRID_W,
+                                            mod.CROP, dims)
+    assert distinct == _live_grid_flops(mod.GRID_H, mod.CROP[1], dims)
+    assert rows.sum() == mod.GRID_H * mod.CROP[1]
+    needed = mod.needed_work()[0]
+    assert needed < distinct < mod.dot_flops_per_frame()
+
+
+@pytest.mark.parametrize("mod", [l1, l2d], ids=["layer1", "layer2"])
+def test_unneeded_input_pixels_do_not_reach_the_output(mod):
+    """The input pixels ``needed_work`` leaves out can change freely
+    without moving the plain output by a bit; the ones it keeps move it."""
+    blocks, shape, plain = _dots_case(mod)
+    gen = torch.Generator().manual_seed(8)
+    pixels = torch.randn(shape, generator=gen).to(torch.bfloat16).reshape(
+        -1, shape[-1])
+    noise = torch.randn(pixels.shape, generator=gen).to(torch.bfloat16)
+    keep = torch.from_numpy(mod.needed_work()[1])
+    keep = F.pad(keep, (0, pixels.shape[0] - len(keep)))[:, None]
+    run = lambda p: plain(p.reshape(shape), blocks)
+    base = run(pixels)
+    assert torch.equal(run(torch.where(keep, pixels, noise)), base)
+    assert not torch.equal(run(torch.where(keep, noise, pixels)), base)
 
 
 def test_dots_wrappers_reject_bad_input():
@@ -248,12 +307,12 @@ def test_dots_wrappers_reject_bad_input():
     with pytest.raises(ValueError):          # blocks out of order
         l1.layer1_dots(torch.zeros((1, 56, 56, 64), dtype=torch.bfloat16),
                        blocks[::-1])
-    dots = l2.pack_layer2_dots(layer2_probe.probe_weights(0)[1])
+    dots = l2d.pack_layer2_dots(layer2_probe.probe_weights(0)[1])
     with pytest.raises(ValueError):
-        l2.layer2_dots(torch.zeros((1, 56, 56, 256), dtype=torch.bfloat16),
+        l2d.layer2_dots(torch.zeros((1, 56, 56, 256), dtype=torch.bfloat16),
                        dots)
     with pytest.raises(ValueError):          # weights on another device
-        l2.layer2_dots(torch.zeros((1, 28, 2, 28, 512), device="meta",
+        l2d.layer2_dots(torch.zeros((1, 28, 2, 28, 512), device="meta",
                                    dtype=torch.bfloat16), dots)
 
 
