@@ -64,7 +64,24 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      (the weights, the BN stats and ``predict_clips`` move), save /
      restore / ``MimamoAPI(checkpoint_dir=...)``, ``evaluate_affwild2``,
      and the step times;
- 11. ``probes``: the layer1 and layer2 probes through their entry points
+ 11. ``serve``, ``cli`` and ``corpus`` (they need OpenCV): three seeded
+     640 x 360 videos of 120, 72 and 30 frames with box and eye-point
+     sidecars. ``serve``: ``serve.run`` on a thread of this process over a
+     pipe, bf16, capacity 8 x chunk 16, uint8 streams: ping, 8 opens, 10
+     ``stream_feed_multi`` requests against a ``StreamingSession`` fed the
+     same chunks (<= 1e-6) with the launches of one request and the
+     latency per request; 10 more with a ``predict`` of the 120-frame
+     video in flight (feeds answered before it, its series against
+     ``MimamoAPI.predict`` alone); ``python -m mimamo_tpu_torch.cli serve``
+     as a subprocess. ``cli``: ``cli.main`` at the default fp32 config:
+     ``predict`` of the video and of 300 crops against ``MimamoAPI``
+     (<= 1e-6, with launch counts), ``extract`` against ``VideoProcessor``
+     and ``FeatureExtractor``, ``eval --batch-streams 8`` against 1 (<
+     1e-4), ``train`` for one epoch and its checkpoint restored.
+     ``corpus``: ``predict-corpus`` with the Python loader (and the native
+     one where it is built), a resumed run, and ``--align`` against ``cli
+     predict --align`` per video (<= 1e-6), frames/s;
+ 12. ``probes``: the layer1 and layer2 probes through their entry points
      (``python -m mimamo_tpu_torch.bench.layer1_probe`` / ``layer2_probe``
      at 384 frames, one timed batch each, the layer2 probe's three variants
      checked against cuDNN at 4 frames), with the launch counts of that
@@ -73,9 +90,9 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      2e-2, finite everywhere), their times, bounds and the same dot
      sequence as bf16 ``torch.matmul`` calls (the yardstick); the cuDNN
      layer1 stage against the dots kernel;
- 12. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
-     gate's bound under ``tol_max_rel`` or ``tol_abs``) and, last, the
-     device line.
+ 13. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
+     gate's bound under ``tol_max_rel`` or ``tol_abs``, the launch counts of
+     each path) and, last, the device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
 of the JAX package.
@@ -87,8 +104,10 @@ import dataclasses
 import json
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1259,6 +1278,424 @@ def train_ckpt_ok(ckpt: str, steps: int) -> bool:
             and os.path.exists(ckpt + ".metrics.jsonl"))
 
 
+# -- the serving daemon, the command line and the corpus runner ---------------
+
+SLICE_ATOL = 1e-6        # max |d| of series and stream values (6 decimals)
+EVAL_BATCH_ATOL = 1e-4   # CCCs, batch of 8 streams against 1 (streamed gate)
+SERVE_FEEDS = 10         # stream_feed_multi requests in each round
+SERVE_T = 120            # frames of the served / predicted / corpus video
+CORPUS_T = (SERVE_T, 72, 30)          # the corpus: the last is < one clip
+SUBPROCESS_TIMEOUT = 120
+CLI_FLAGS: list = []     # flags every command line of these phases gets
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def slice_media(tmp: str) -> dict:
+    """The corpus of the new phases: videos of CORPUS_T frames at 640 x 360
+    (the first is the served and predicted one) in ``<tmp>/videos``, each
+    with ``<video>.boxes.npy`` (``video_source``'s boxes moved inside the
+    frame) and ``<video>.landmarks.npy`` (its eye points) sidecars; a seeded ``.npy`` of API_T crops; a synthetic Aff-Wild2
+    corpus (as the train phase makes it)."""
+    import cv2  # noqa: F401 — the phases decode and encode video files
+    from mimamo_tpu_torch.io import decode
+    vdir = os.path.join(tmp, "videos")
+    os.makedirs(vdir)
+    videos = []
+    for i, t in enumerate(CORPUS_T):
+        frames, boxes, eyes = video_source(t, 360, 640, SEED + 20 + i)
+        # inside the frame, as a tracker's boxes are: the corpus runner's
+        # host crop slices the frame by them
+        boxes[:, 2:] = np.minimum(boxes[:, 2:], 360)
+        boxes[:, :2] = np.clip(boxes[:, :2], 0, [360, 640] - boxes[:, 2:])
+        path = os.path.join(vdir, f"v{i}.mp4")
+        decode.write_video(path, frames)
+        np.save(path + ".boxes.npy", boxes)
+        np.save(path + ".landmarks.npy", eyes)
+        videos.append(path)
+    crops = os.path.join(tmp, "crops.npy")
+    np.save(crops, np.random.default_rng(SEED + 4).integers(
+        0, 256, (API_T, S, S, 3), dtype=np.uint8))
+    aff = os.path.join(tmp, "aff")
+    datasets.make_synthetic_affwild2(aff, n_videos=2, frames=TRAIN_T, size=S,
+                                     seed=SEED)
+    return {"videos": videos, "dir": vdir, "crops": crops, "aff": aff}
+
+
+def save_weights(state: dict, cfg: MimamoConfig, path: str) -> str:
+    """``state`` as a port checkpoint directory (what ``--ckpt`` reads)."""
+    model = Mimamo(cfg)
+    model.load_state_dict(state)
+    checkpoints.save(path, train.create_train_state(model))
+    del model
+    return path
+
+
+class PipeClient:
+    """The client end of ``serve.run`` driven on a thread of this process
+    over two pipes: sends one request line, reads lines until the one with
+    its id, and keeps the order in which responses arrived."""
+
+    def __init__(self, server):
+        from mimamo_tpu_torch import serve
+        r_in, w_in = os.pipe()
+        r_out, w_out = os.pipe()
+        self._to_server = os.fdopen(w_in, "w")
+        self._from_server = os.fdopen(r_out, "r")
+        self._server_in = os.fdopen(r_in, "r")
+        self._server_out = os.fdopen(w_out, "w")
+        self.thread = threading.Thread(
+            target=serve.run, args=(server, self._server_in,
+                                    self._server_out), daemon=True)
+        self.thread.start()
+        self.arrivals, self.stashed, self._n = [], {}, 0
+
+    def send(self, req: dict) -> str:
+        self._n += 1
+        rid = req.setdefault("id", f"r{self._n}")
+        self._to_server.write(json.dumps(req) + "\n")
+        self._to_server.flush()
+        return rid
+
+    def wait(self, rid: str) -> dict:
+        while rid not in self.stashed:
+            resp = json.loads(self._from_server.readline())
+            self.arrivals.append(resp.get("id"))
+            self.stashed[resp.get("id")] = resp
+        return self.stashed.pop(rid)
+
+    def request(self, req: dict) -> tuple:
+        """(response, seconds from the write to the response's arrival)"""
+        t = time.perf_counter()
+        resp = self.wait(self.send(req))
+        return resp, time.perf_counter() - t
+
+    def close(self) -> None:
+        resp = self.wait(self.send({"cmd": "shutdown"}))
+        self.thread.join(SUBPROCESS_TIMEOUT)
+        for f in (self._to_server, self._from_server, self._server_in,
+                  self._server_out):
+            f.close()
+        if not resp.get("shutdown") or self.thread.is_alive():
+            raise AssertionError("the serve loop did not shut down")
+
+
+def serve_values(resp: dict, names: list) -> np.ndarray:
+    if not resp.get("ok"):
+        raise AssertionError(f"serve request failed: {resp}")
+    return np.stack([np.asarray(resp["values"][n], np.float64)
+                     for n in names])
+
+
+def check_serve(state: dict, cfg: MimamoConfig, ckpt: str, media: dict,
+                line: str) -> dict:
+    """``serve.run`` in this process over a pipe at the bf16 main path's
+    config, capacity 8 x chunk 16, uint8 streams: ping, 8 ``stream_open``,
+    SERVE_FEEDS ``stream_feed_multi`` requests of seeded chunks (npy
+    paths), against a ``StreamingSession`` on the same model fed the same
+    chunks (<= SLICE_ATOL) and with the launches of one request; the same
+    again with a ``predict`` of the 120-frame video in flight on the
+    worker thread (feeds answered before it, its series against
+    ``MimamoAPI.predict`` alone); then ``python -m mimamo_tpu_torch.cli
+    serve`` as a subprocess. Returns the launches of one
+    ``stream_feed_multi``."""
+    from mimamo_tpu_torch import serve
+    report = {"card": line}
+    names = [f"s{i}" for i in range(CAPACITY)]
+    rng = np.random.default_rng(SEED + 30)
+    chunks = rng.integers(0, 256, (SERVE_FEEDS, CAPACITY, CHUNK, S, S, 3),
+                          dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [[os.path.join(tmp, f"f{i}_{n}.npy") for n in names]
+                 for i in range(SERVE_FEEDS)]
+        for i in range(SERVE_FEEDS):
+            for j in range(CAPACITY):
+                np.save(paths[i][j], chunks[i, j])
+        server = serve.Server(config=cfg, state_dict=state,
+                              capacity=CAPACITY, chunk=CHUNK,
+                              stream_dtype=np.uint8, warmup=True,
+                              device="cuda")
+        # the reference: the same slot history (warm-up, then 8 opens)
+        ref = StreamingSession(server.api.model, capacity=CAPACITY,
+                               chunk=CHUNK, dtype=np.uint8)
+        warm = ref.add_stream()
+        ref.feed({warm: np.zeros((CHUNK, S, S, 3), np.uint8)})
+        ref.remove_stream(warm)
+        client = PipeClient(server)
+        ping, _ = client.request({"cmd": "ping"})
+        slots = [client.request({"cmd": "stream_open", "stream": n})[0]
+                 .get("slot") for n in names]
+        if not ping.get("ok") or slots != [ref.add_stream() for _ in names]:
+            raise AssertionError(f"serve: ping {ping}, slots {slots}")
+
+        def feed_round(predict_id=None):
+            ms, errs, ids, firsts, launches = [], [], [], [], None
+            for i in range(SERVE_FEEDS):
+                req = {"cmd": "stream_feed_multi",
+                       "streams": dict(zip(names, paths[i]))}
+                if predict_id is None and i == 2:
+                    (resp, sec), launches = counted(
+                        lambda: client.request(req))
+                else:
+                    resp, sec = client.request(req)
+                want = ref.feed({s: chunks[i, j]
+                                 for j, s in enumerate(slots)})
+                ids.append(resp["id"])
+                ms.append(sec * 1e3)
+                got = serve_values(resp, names)
+                firsts.append(got[0])
+                errs.append(float(np.abs(got - np.stack(
+                    [want[s] for s in slots])).max()))
+            return ms, max(errs), ids, firsts, launches
+
+        ms, err, _, firsts, launches = feed_round()
+        # a fresh s0 fed chunk 0, as the subprocess below feeds it
+        first_s0 = firsts[0]
+        video = media["videos"][0]
+        pid = client.send({"cmd": "predict", "video": video,
+                           "series": True, "id": "P"})
+        ms_p, err_p, feed_ids, _, _ = feed_round(pid)
+        predicted = client.wait(pid)
+        order = client.arrivals
+        before = [i for i in feed_ids if order.index(i) < order.index(pid)]
+        for n in names:
+            client.request({"cmd": "stream_close", "stream": n})
+        client.close()
+        alone = server.api.predict(video)
+        series = np.asarray(predicted.get("series", []), np.float64)
+        report.update({
+            "serve_feed_ms": {"median": statistics.median(ms),
+                              "max": max(ms), "all": ms},
+            "serve_feed_ms_predict_in_flight": {
+                "median": statistics.median(ms_p), "max": max(ms_p),
+                "all": ms_p},
+            "serve_values_vs_session_max_abs": err,
+            "serve_values_in_flight_vs_session_max_abs": err_p,
+            "feeds_answered_before_predict": len(before),
+            "predict_vs_alone_max_abs": (
+                float(np.abs(series - alone).max())
+                if series.shape == alone.shape else None),
+            "launches_per_feed_multi": launches,
+            "frames_per_feed": CAPACITY * CHUNK})
+        del server, ref
+        torch.cuda.empty_cache()
+
+        # the daemon as a user starts it
+        reqs = [{"cmd": "ping", "id": "p"},
+                {"cmd": "stream_open", "stream": "s0", "id": "o"},
+                {"cmd": "stream_feed_multi", "id": "f",
+                 "streams": {"s0": paths[0][0]}},
+                {"cmd": "stream_close", "stream": "s0", "id": "c"},
+                {"cmd": "shutdown", "id": "x"}]
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mimamo_tpu_torch.cli", "serve", "--ckpt",
+             ckpt, "--dtype", "bfloat16", "--uint8-streams", "--capacity",
+             str(CAPACITY), "--chunk", str(CHUNK), *CLI_FLAGS],
+            input="".join(json.dumps(r) + "\n" for r in reqs),
+            capture_output=True, text=True, cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO),
+            timeout=SUBPROCESS_TIMEOUT)
+        wall = time.perf_counter() - t
+        lines = [json.loads(x) for x in proc.stdout.splitlines() if x]
+        by_id = {x.get("id"): x for x in lines[1:]}
+        sub_ok = (proc.returncode == 0 and lines and lines[0].get("ready")
+                  and all(by_id.get(k, {}).get("ok") for k in "pofcx"))
+        sub_err = (float(np.abs(serve_values(by_id["f"], ["s0"])[0]
+                                - first_s0).max()) if sub_ok else None)
+        report["cli_serve_subprocess"] = {
+            "rc": proc.returncode, "wall_s": wall, "answered": sorted(by_id),
+            "values_vs_in_process_max_abs": sub_err,
+            "feed": by_id.get("f") if not sub_ok else "ok",
+            "stderr_tail": proc.stderr[-300:] if not sub_ok else ""}
+    print(json.dumps(report), flush=True)
+    if not (err <= SLICE_ATOL and err_p <= SLICE_ATOL
+            and len(before) >= 1 and series.shape == (SERVE_T, 2)
+            and report["predict_vs_alone_max_abs"] <= SLICE_ATOL
+            and sub_ok and sub_err <= SLICE_ATOL):
+        raise AssertionError(f"serve phase: {report}")
+    return launches
+
+
+def run_cli(argv: list) -> list:
+    """``cli.main(argv + CLI_FLAGS)`` in this process: its JSON lines."""
+    import contextlib
+    import io
+    from mimamo_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + CLI_FLAGS)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return [json.loads(x) for x in buf.getvalue().splitlines() if x]
+
+
+def read_csv(path: str) -> np.ndarray:
+    return np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+
+
+def check_cli(state: dict, cfg: MimamoConfig, ckpt: str, media: dict,
+              line: str) -> dict:
+    """``cli.main`` at the default config (fp32): ``predict --video
+    --boxes --out`` and ``predict --crops`` against ``MimamoAPI``,
+    ``extract`` against ``VideoProcessor`` and ``FeatureExtractor``,
+    ``eval --batch-streams 8`` against ``--batch-streams 1``, ``train``
+    for one epoch and its checkpoint restored by ``MimamoAPI``. Returns
+    the launches of one ``cli predict`` of the 120-frame video (one
+    forward)."""
+    report = {"card": line}
+    video, crops = media["videos"][0], media["crops"]
+    boxes = video + ".boxes.npy"
+    a = api.MimamoAPI(config=cfg, state_dict=state, device="cuda")
+    want = a.predict(video, boxes_path=boxes)           # and the warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "p.csv")
+        t = time.perf_counter()
+        rows, launches = counted(
+            lambda: run_cli(["predict", "--video", video, "--boxes", boxes,
+                             "--out", out, "--ckpt", ckpt]),
+            expected_launches(1, fp32=True))
+        report["cli_predict_wall_ms"] = (time.perf_counter() - t) * 1e3
+        got = read_csv(out)
+        row = rows[0]
+        report["cli_predict"] = {
+            "row": row, "csv_rows": len(got),
+            "csv_vs_api_max_abs": float(np.abs(got[:, 1:] - want).max()),
+            "means_abs": float(max(
+                abs(row["valence_mean"] - want[:, 0].mean()),
+                abs(row["arousal_mean"] - want[:, 1].mean())))}
+        starts = window_starts(API_T, cfg.clip.clip_len, cfg.clip.stride)
+        want_c = a.predict_crops(crops)
+        out_c = os.path.join(tmp, "c.csv")
+        _, report["launches_cli_predict_crops"] = counted(
+            lambda: run_cli(["predict", "--crops", crops, "--out", out_c,
+                             "--ckpt", ckpt]),
+            expected_launches(-(-len(starts) // 8), fp32=True))
+        got_c = read_csv(out_c)
+        report["cli_predict_crops_vs_api_max_abs"] = float(
+            np.abs(got_c[:, 1:] - want_c).max())
+
+        (ex,) = run_cli(["extract", "--video", video, "--boxes", boxes,
+                         "--out-dir", os.path.join(tmp, "ex"), "--ckpt",
+                         ckpt])
+        vp = api.VideoProcessor(save_size=S, device="cuda").process(
+            video, os.path.join(tmp, "vp"), boxes_path=boxes)
+        feats = np.load(ex["features"])
+        fx = api.FeatureExtractor(config=cfg, state_dict=state,
+                                  device="cuda")
+        report["cli_extract"] = {
+            "crops_max_lsb": int(np.abs(np.load(ex["crops"]).astype(int)
+                                        - np.load(vp)).max()),
+            "features_vs_extractor_max_rel": max_rel(
+                feats, np.load(fx.extract(ex["crops"], os.path.join(
+                    tmp, "fx.feat.npy")))),
+            "features_shape": list(feats.shape)}
+        del fx
+
+        evals = {}
+        for bs in (8, 1):
+            t = time.perf_counter()
+            (evals[bs],) = run_cli(["eval", "--dataset", "affwild2",
+                                    "--root", media["aff"], "--ckpt", ckpt,
+                                    "--batch-streams", str(bs)])
+            evals[bs]["wall_ms"] = (time.perf_counter() - t) * 1e3
+        report["cli_eval"] = evals
+        report["cli_eval_batch8_vs_1_max_abs"] = max(
+            abs(evals[8][k] - evals[1][k])
+            for k in ("valence_ccc", "arousal_ccc", "mean_ccc"))
+
+        trained = os.path.join(tmp, "trained")
+        t = time.perf_counter()
+        train_rows = run_cli(["train", "--dataset", "affwild2", "--root",
+                              media["aff"], "--ckpt", trained, "--epochs",
+                              "1"])
+        report["cli_train_wall_ms"] = (time.perf_counter() - t) * 1e3
+        report["cli_train_rows"] = train_rows
+        restored = api.MimamoAPI(config=cfg, checkpoint_dir=trained,
+                                 device="cuda").model.state_dict()
+        saved = checkpoints.load(trained)["model"]
+        report["cli_train_restore_max_abs"] = max(
+            float((restored[k].cpu().float() - v.float()).abs().max())
+            for k, v in saved.items())
+        steps = train_rows[0]["steps"] if train_rows else 0
+        report["cli_train_ckpt_step"] = checkpoints.latest_step(trained)
+    report["launches_cli_predict"] = launches
+    print(json.dumps(report), flush=True)
+    pr, ex = report["cli_predict"], report["cli_extract"]
+    if not (pr["row"]["frames"] == SERVE_T and pr["csv_rows"] == SERVE_T
+            and pr["csv_vs_api_max_abs"] <= SLICE_ATOL
+            and pr["means_abs"] <= SLICE_ATOL
+            and report["cli_predict_crops_vs_api_max_abs"] <= SLICE_ATOL
+            and ex["crops_max_lsb"] <= 1
+            and ex["features_vs_extractor_max_rel"] <= SAME_SHAPE_REL_TOL
+            and ex["features_shape"] == [SERVE_T, 2048]
+            and report["cli_eval_batch8_vs_1_max_abs"] < EVAL_BATCH_ATOL
+            and len(train_rows) == 1 and steps > 0
+            and np.isfinite(train_rows[0]["loss"])
+            and report["cli_train_ckpt_step"] == steps
+            and report["cli_train_restore_max_abs"] == 0.0):
+        raise AssertionError(f"cli phase: {report}")
+    return launches
+
+
+def check_corpus(ckpt: str, media: dict, line: str) -> None:
+    """``cli predict-corpus`` at the default config over the 3 videos:
+    the Python loader (box crops on the host), the native loader where the
+    library is built (never built here), a resumed run, and ``--align``
+    with the landmark sidecars against ``cli predict --align`` of each
+    video."""
+    from mimamo_tpu_torch.io import native_loader
+    report = {"card": line, "native_available": native_loader.available()}
+    glob_ = os.path.join(media["dir"], "*.mp4")
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [("python", ["--no-native"])]
+        if native_loader.available():
+            runs.append(("native", []))
+        for loader, flags in runs:
+            out = os.path.join(tmp, loader)
+            (stats,) = run_cli(["predict-corpus", "--videos", glob_,
+                                "--out-dir", out, "--ckpt", ckpt, *flags])
+            (again,) = run_cli(["predict-corpus", "--videos", glob_,
+                                "--out-dir", out, "--ckpt", ckpt, *flags])
+            with open(os.path.join(out, "manifest.jsonl")) as f:
+                manifest = {os.path.basename(r["video"]): r
+                            for r in map(json.loads, f)}
+            csvs = [read_csv(os.path.join(out, f"v{i}.csv"))
+                    for i in range(len(CORPUS_T))]
+            report[f"corpus_{loader}"] = {
+                "stats": stats, "resumed": again,
+                "frames_per_s": stats["fps"],
+                "manifest": {k: [r["status"], r.get("frames")]
+                             for k, r in manifest.items()}}
+            ok = ok and (
+                stats["videos"] == len(CORPUS_T) and stats["failed"] == 0
+                and stats["frames"] == sum(CORPUS_T)
+                and again["resumed_skipped"] == len(CORPUS_T)
+                and again["videos"] == 0
+                and all(manifest[f"v{i}.mp4"]["status"] == "ok"
+                        and manifest[f"v{i}.mp4"]["frames"] == t
+                        for i, t in enumerate(CORPUS_T))
+                and all(c.shape == (t, 3) and np.isfinite(c).all()
+                        for c, t in zip(csvs, CORPUS_T)))
+        out = os.path.join(tmp, "aligned")
+        (stats,) = run_cli(["predict-corpus", "--videos", glob_,
+                            "--out-dir", out, "--ckpt", ckpt, "--align",
+                            "--no-native"])
+        errs = []
+        for i, video in enumerate(media["videos"]):
+            ref = os.path.join(tmp, f"ref{i}.csv")
+            run_cli(["predict", "--video", video, "--align", "--out", ref,
+                     "--ckpt", ckpt])
+            errs.append(float(np.abs(read_csv(os.path.join(
+                out, f"v{i}.csv")) - read_csv(ref)).max()))
+        report["corpus_aligned"] = {"stats": stats,
+                                    "vs_cli_predict_align_max_abs": errs}
+    print(json.dumps(report), flush=True)
+    if not (ok and stats["videos"] == len(CORPUS_T)
+            and max(errs) <= SLICE_ATOL):
+        raise AssertionError(f"corpus phase: {report}")
+
+
 # -- the probes ----------------------------------------------------------------
 
 PROBE_ITERS = 1          # timed batches of 10 calls in each probe's run
@@ -1375,6 +1812,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     line = card()
     print(line, flush=True)
     t0 = time.perf_counter()
@@ -1476,12 +1914,28 @@ def main() -> int:
         rec["launches_train_step"] = train_launches[rec["name"]]
     stem_rec["launches"] = fp32_launches["stem_fused[f32]"]
 
+    # -- the serving daemon, the command line and the corpus runner ----------
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        media = slice_media(tmp)
+        ckpt = save_weights(state, cfg, os.path.join(tmp, "ckpt"))
+        serve_launches = check_serve(state, cfg, ckpt, media, line)
+        cli_launches = check_cli(state, MimamoConfig(), ckpt, media, line)
+        check_corpus(ckpt, media, line)
+    print(json.dumps({"serve_cli_corpus_s": time.perf_counter() - t}),
+          flush=True)
+    torch.cuda.empty_cache()
+
     # -- the probes -------------------------------------------------------------
     with torch.no_grad():
         probe_recs, probe_launches = check_probes(line)
     for rec in recs:
         rec["launches_probes"] = probe_launches[rec["name"]]
     recs += probe_recs
+    for rec in recs:
+        rec["launches_serve_feed"] = serve_launches[rec["name"]]
+        rec["launches_cli_predict"] = cli_launches[rec["name"]]
+    print(json.dumps({"smoke_s": time.perf_counter() - t_start}), flush=True)
 
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,11 @@
 Counterpart of ``mimamo_tpu/data/eval.py`` on one process. OMG-Emotion
 scores utterance-level CCC (the mean prediction of an utterance against
 its label); Aff-Wild2 scores frame-level CCC over the valid frames of all
-videos. Each sequence runs through ``Mimamo.predict_stream`` chunk by
-chunk, so a sequence of any length needs the memory of one chunk; the
-sequences go one after another (the JAX package's batch of streams and
-its dispatch pipeline have no counterpart here). The moment sums are the
-exact reduction a multi-process eval would add up.
+videos. Up to ``batch_streams`` sequences advance together through one
+``streaming.StreamingSession``, one batched forward per chunk, so a
+sequence of any length needs the memory of one chunk. The JAX package's
+dispatch pipeline has no counterpart here. The moment sums are the exact
+reduction a multi-process eval would add up.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Dict, Iterable, Iterator, Tuple
 import numpy as np
 
 from ..runner import Mimamo
+from ..streaming import StreamingSession
 from .datasets import AffWild2Dataset, OMGEmotionDataset
 
 
@@ -68,30 +69,57 @@ def _read_piece(src, start: int, count: int) -> np.ndarray:
 
 def stream_predict_many(model: Mimamo,
                         items: Iterable[Tuple[object, np.ndarray]],
-                        chunk: int = 48
+                        chunk: int = 48, batch_streams: int = 8
                         ) -> Iterator[Tuple[object, np.ndarray]]:
-    """(key, [T_i, 2] series) for each (key, crops) of ``items``, in order.
+    """(key, [T_i, 2] series) for each (key, crops) of ``items``, batched
+    over streams, in completion order.
 
     ``crops`` is a [T_i, S, S, 3] array or a chunk-readable source
     (``__len__`` and ``read(start, count)``, e.g. ``data.crops.
-    CropSource``), read one chunk at a time. Each sequence streams through
-    ``model.predict_stream`` in chunks of ``chunk`` frames; the last chunk
-    is padded by repeating its last frame and its outputs are cut back, so
-    every call has one shape. A zero-frame source gives an empty series.
+    CropSource``), read one chunk per feed. Items are pulled lazily, at
+    most ``batch_streams`` at a time, each into a slot of one
+    ``StreamingSession``; every feed advances all active sequences by
+    ``chunk`` frames in one forward. A sequence's last chunk is padded by
+    repeating its last frame and its outputs are cut back, so every feed
+    has one shape. A zero-frame source gives an empty series at once.
     """
-    for key, crops in items:
-        t = len(crops)
-        outs, carries = [], None
-        for start in range(0, t, chunk):
-            piece = _read_piece(crops, start, chunk)
-            n = len(piece)
-            if n < chunk:
+    it = iter(items)
+    session = StreamingSession(model, capacity=batch_streams, chunk=chunk)
+    active: Dict[int, dict] = {}   # slot -> {key, src, len, off, parts}
+    exhausted = False
+    while True:
+        while not exhausted and session.free_slots:
+            try:
+                key, crops = next(it)
+            except StopIteration:
+                exhausted = True
+                break
+            if len(crops) == 0:
+                yield key, np.zeros((0, 2), np.float32)
+                continue
+            slot = session.add_stream()
+            active[slot] = {"key": key, "src": crops, "len": len(crops),
+                            "off": 0, "parts": []}
+        if not active:
+            return
+        feeds = {}
+        for slot, st in active.items():
+            k = min(chunk, st["len"] - st["off"])
+            piece = _read_piece(st["src"], st["off"], k)
+            if k < chunk:
                 piece = np.concatenate(
-                    [piece, np.repeat(piece[-1:], chunk - n, axis=0)])
-            out, carries = model.predict_stream(piece[None], carries)
-            outs.append(out[0, :n].cpu().numpy())
-        yield key, (np.concatenate(outs) if outs
-                    else np.zeros((0, 2), np.float32))
+                    [piece, np.repeat(piece[-1:], chunk - k, axis=0)])
+            feeds[slot] = piece.astype(np.float32)
+        outs = session.feed(feeds)
+        for slot in list(active):
+            st = active[slot]
+            k = min(chunk, st["len"] - st["off"])
+            st["parts"].append(outs[slot][:k])
+            st["off"] += k
+            if st["off"] >= st["len"]:
+                session.remove_stream(slot)
+                del active[slot]
+                yield st["key"], np.concatenate(st["parts"], axis=0)
 
 
 def _reduce_ccc(preds: np.ndarray, golds: np.ndarray):
@@ -102,7 +130,8 @@ def _reduce_ccc(preds: np.ndarray, golds: np.ndarray):
 
 
 def evaluate_omg(model: Mimamo, dataset: OMGEmotionDataset,
-                 chunk: int = 48) -> Dict[str, float]:
+                 chunk: int = 48, batch_streams: int = 8
+                 ) -> Dict[str, float]:
     """Utterance-level CCC of valence and arousal."""
     labels = {}
 
@@ -112,7 +141,8 @@ def evaluate_omg(model: Mimamo, dataset: OMGEmotionDataset,
             yield i, src
 
     preds, golds = [], []
-    for i, series in stream_predict_many(model, items(), chunk=chunk):
+    for i, series in stream_predict_many(model, items(), chunk=chunk,
+                                         batch_streams=batch_streams):
         preds.append(series.mean(axis=0))
         golds.append(labels[i])
     ccc, n = _reduce_ccc(
@@ -123,7 +153,8 @@ def evaluate_omg(model: Mimamo, dataset: OMGEmotionDataset,
 
 
 def evaluate_affwild2(model: Mimamo, dataset: AffWild2Dataset,
-                      chunk: int = 48) -> Dict[str, float]:
+                      chunk: int = 48, batch_streams: int = 8
+                      ) -> Dict[str, float]:
     """Frame-level CCC over all valid frames of all videos."""
     meta = {}
 
@@ -133,7 +164,8 @@ def evaluate_affwild2(model: Mimamo, dataset: AffWild2Dataset,
             yield vid, src
 
     preds, golds = [], []
-    for vid, series in stream_predict_many(model, items(), chunk=chunk):
+    for vid, series in stream_predict_many(model, items(), chunk=chunk,
+                                           batch_streams=batch_streams):
         labels, mask = meta[vid]
         valid = mask > 0
         preds.append(series[valid])

@@ -117,6 +117,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._count_lock = threading.Lock()   # launches from two threads
 
     def __call__(self, *args) -> None:
         lib = library()
@@ -128,7 +129,8 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {err} "
                 f"({lib.mimamo_cuda_error_string(err).decode()})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 P = ctypes.c_void_p    # device pointer or stream handle

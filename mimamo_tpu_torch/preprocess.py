@@ -29,6 +29,7 @@ numpy, copied from the JAX package line for line.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -135,31 +136,61 @@ def merge_window_predictions(preds, starts: np.ndarray,
     return (acc / np.maximum(cnt, 1.0)).astype(preds.dtype)
 
 
+# ieee_fp32_matmul's section: the TF32 switches are process-global, so
+# threads that overlap share one section. The first thread in saves the
+# caller's switches and sets them to IEEE; the last thread out puts the
+# saved ones back.
+_IEEE_LOCK = threading.Lock()
+_ieee_depth = 0
+_ieee_saved = None
+
+
+def _set_ieee():
+    """Switch fp32 matmuls to IEEE; returns what to restore. Whichever of
+    PyTorch's two ways the caller used to set the switches is used here
+    too, because mixing the two makes later reads of the switches raise."""
+    cuda_mm = torch.backends.cuda.matmul
+    try:
+        legacy = (cuda_mm.allow_tf32, torch.get_float32_matmul_precision())
+    except RuntimeError:          # the switches were set by fp32_precision
+        prev = cuda_mm.fp32_precision
+        cuda_mm.fp32_precision = "ieee"
+        return ("fp32_precision", prev)
+    torch.set_float32_matmul_precision("highest")
+    return ("legacy", legacy)
+
+
+def _restore(saved) -> None:
+    api, prev = saved
+    if api == "fp32_precision":
+        torch.backends.cuda.matmul.fp32_precision = prev
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+
+
 @contextlib.contextmanager
 def ieee_fp32_matmul() -> Iterator[None]:
     """fp32 matmuls inside run in IEEE fp32 on every device, whatever the
     caller's switches say (TF32 would round the operands to 10 mantissa
     bits: a crop's hat weights, and so its 0..255 pixels, by up to ~0.2).
-    The switches are restored on exit. Whichever of PyTorch's two ways
-    the caller used to set them is used here too, because mixing the two
-    makes later reads of the switches raise."""
-    cuda_mm = torch.backends.cuda.matmul
-    try:
-        legacy = (cuda_mm.allow_tf32, torch.get_float32_matmul_precision())
-    except RuntimeError:          # the switches were set by fp32_precision
-        legacy = None
-        prev = cuda_mm.fp32_precision
-        cuda_mm.fp32_precision = "ieee"
-    else:
-        torch.set_float32_matmul_precision("highest")
+
+    The switches are process-global, so the section is counted under a
+    lock: while any thread is inside, they stay IEEE, and the caller's
+    switches come back when the last thread leaves."""
+    global _ieee_depth, _ieee_saved
+    with _IEEE_LOCK:
+        if _ieee_depth == 0:
+            _ieee_saved = _set_ieee()
+        _ieee_depth += 1
     try:
         yield
     finally:
-        if legacy is None:
-            cuda_mm.fp32_precision = prev
-        else:
-            cuda_mm.allow_tf32 = legacy[0]
-            torch.set_float32_matmul_precision(legacy[1])
+        with _IEEE_LOCK:
+            _ieee_depth -= 1
+            if _ieee_depth == 0:
+                _restore(_ieee_saved)
+                _ieee_saved = None
 
 
 def _interp_matrix(starts: torch.Tensor, sizes: torch.Tensor, src: int,

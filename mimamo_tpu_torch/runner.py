@@ -25,6 +25,7 @@ through ``load_state_dict``, or the folded copy goes stale.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -74,18 +75,26 @@ class Mimamo(nn.Module):
         self.device = device
         self.to(device).eval()
         self._folded: Optional[FoldedResNet50] = None
+        # the fold runs once even when two threads (the serving daemon's
+        # stream feeds and its predict worker) reach it together
+        self._fold_lock = threading.Lock()
 
     def load_state_dict(self, state_dict, strict: bool = True,
                         assign: bool = False):
-        self._folded = None
-        return super().load_state_dict(state_dict, strict=strict,
-                                       assign=assign)
+        with self._fold_lock:
+            self._folded = None
+            return super().load_state_dict(state_dict, strict=strict,
+                                           assign=assign)
 
     def _backbone_folded(self) -> FoldedResNet50:
-        if self._folded is None:
-            self._folded = FoldedResNet50(fold_batchnorm(self.backbone),
-                                          self.config.backbone)
-        return self._folded
+        folded = self._folded
+        if folded is None:
+            with self._fold_lock:
+                if self._folded is None:
+                    self._folded = FoldedResNet50(
+                        fold_batchnorm(self.backbone), self.config.backbone)
+                folded = self._folded
+        return folded
 
     def embed_frames(self, crops_rgb: torch.Tensor) -> torch.Tensor:
         """[B, T, S, S, 3] float32 0..255 crops -> [B, T, F] pool5

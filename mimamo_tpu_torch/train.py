@@ -301,7 +301,8 @@ def variables_from_state(state: TrainState) -> Dict[str, torch.Tensor]:
 def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
         resume: bool = False, eval_dataset=None,
         epochs: Optional[int] = None, eval_every: int = 1,
-        log: Optional[str] = None, device=None
+        log: Optional[str] = None, device=None,
+        on_epoch: Optional[Callable[[dict], None]] = None
         ) -> Tuple[TrainState, List[dict]]:
     """Train a model from ``weights.init_variables(config,
     config.train.seed)`` on ``dataset`` (``data.datasets``), one device;
@@ -320,7 +321,8 @@ def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
     it only once the restored step has passed it. ``eval_dataset`` is
     scored every ``eval_every`` epochs (``evaluate_omg`` for an
     ``OMGEmotionDataset``, ``evaluate_affwild2`` otherwise). The rows go to
-    ``log`` (default ``<ckpt>.metrics.jsonl``) as JSON lines.
+    ``log`` (default ``<ckpt>.metrics.jsonl``) as JSON lines, and to
+    ``on_epoch`` as each epoch ends.
     """
     from .data import eval as eval_mod
     from .data.datasets import OMGEmotionDataset
@@ -393,6 +395,8 @@ def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
                     config.backbone.channel_order)
                 row["best"] = True
         history.append(row)
+        if on_epoch is not None:
+            on_epoch(row)
         if log_path:
             with open(log_path, "a") as f:
                 f.write(json.dumps(row) + "\n")

@@ -19,6 +19,7 @@ from mimamo_tpu_torch import weights
 from mimamo_tpu_torch.data import datasets as tds
 from mimamo_tpu_torch.data import eval as teval
 from mimamo_tpu_torch.runner import Mimamo
+from mimamo_tpu_torch.streaming import StreamingSession
 
 from test_torch_runner import S, T, _configs
 
@@ -160,14 +161,15 @@ def eval_case(corpora):
                                      batch_streams=2)}
     model = Mimamo(tcfg, device="cpu")
     model.load_state_dict(weights.from_jax_variables(variables))
-    return model, _datasets(tds, corpora["jax"], tcfg.clip), ref
+    return (model, _datasets(tds, corpora["jax"], tcfg.clip), ref,
+            variables)
 
 
 @pytest.mark.parametrize("kind", ["aff", "omg"])
 def test_evaluate_matches_jax(eval_case, kind):
     """Frame-level (Aff-Wild2) and utterance-level (OMG) CCCs: atol 1e-5;
     the counts equal."""
-    model, (aff, omg), ref = eval_case
+    model, (aff, omg), ref, _ = eval_case
     got = (teval.evaluate_affwild2(model, aff, chunk=T) if kind == "aff"
            else teval.evaluate_omg(model, omg, chunk=T))
     want = ref[kind]
@@ -177,8 +179,10 @@ def test_evaluate_matches_jax(eval_case, kind):
 
 
 def test_stream_predict_many_pads_and_keeps_order(eval_case):
-    """Sequences of 0, 3 and 9 frames at chunk 4: in order, one row per
-    frame, and a sequence equal to ``predict_stream`` over its chunks."""
+    """Sequences of 0, 3 and 9 frames at chunk 4: they finish in this
+    order, one row per frame, and each equals a ``StreamingSession`` fed
+    the same chunks (the tail padded by its last frame) in the same slots
+    and steps."""
     model = eval_case[0]
     rng = np.random.default_rng(8)
     seqs = {k: rng.integers(0, 256, (n, S, S, 3), dtype=np.uint8)
@@ -186,15 +190,46 @@ def test_stream_predict_many_pads_and_keeps_order(eval_case):
     out = list(teval.stream_predict_many(model, seqs.items(), chunk=T))
     assert [k for k, _ in out] == ["a", "b", "c"]
     assert [len(s) for _, s in out] == [0, 3, 9]
-    carries, parts = None, []
-    c = seqs["c"]
-    for start in (0, 4, 8):
-        piece = c[start:start + 4]
-        piece = np.concatenate([piece, np.repeat(piece[-1:], 4 - len(piece),
-                                                 axis=0)])
-        o, carries = model.predict_stream(piece[None], carries)
-        parts.append(o[0].numpy())
+
+    def padded(x, start):
+        piece = x[start:start + T]
+        return np.concatenate([piece, np.repeat(
+            piece[-1:], T - len(piece), axis=0)]).astype(np.float32)
+
+    sess = StreamingSession(model, capacity=8, chunk=T)
+    sb, sc = sess.add_stream(), sess.add_stream()
+    first = sess.feed({sb: padded(seqs["b"], 0), sc: padded(seqs["c"], 0)})
+    sess.remove_stream(sb)
+    parts = [first[sc]] + [sess.feed({sc: padded(seqs["c"], s)})[sc]
+                           for s in (4, 8)]
+    np.testing.assert_array_equal(out[1][1], first[sb][:3])
     np.testing.assert_array_equal(out[2][1], np.concatenate(parts)[:9])
+
+
+@pytest.mark.parametrize("batch_streams", [1, 2, 8])
+def test_stream_predict_many_matches_jax(eval_case, batch_streams):
+    """The batched ``stream_predict_many`` against the JAX one at the same
+    ``batch_streams``: the same completion order (a long sequence first, so
+    shorter ones overtake it when they share a step; zero-frame sources at
+    once) and the series at atol 1e-5."""
+    model = eval_case[0]
+    variables = eval_case[3]
+    rng = np.random.default_rng(9)
+    lengths = (("long", 11), ("empty", 0), ("short", 3), ("mid", 6),
+               ("one", 1))
+    seqs = [(k, rng.integers(0, 256, (n, S, S, 3), dtype=np.uint8))
+            for k, n in lengths]
+    jm = JaxMimamo(_configs("float32")[0])
+    want = list(jeval.stream_predict_many(jm, variables, seqs, chunk=T,
+                                          batch_streams=batch_streams))
+    got = list(teval.stream_predict_many(model, seqs, chunk=T,
+                                         batch_streams=batch_streams))
+    assert [k for k, _ in got] == [k for k, _ in want]
+    if batch_streams > 1:
+        assert [k for k, _ in got][:2] != ["long", "empty"]
+    for (_, g), (_, w) in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
 
 
 def test_evaluate_rejects_an_empty_corpus(tmp_path, eval_case):
