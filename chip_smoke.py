@@ -90,7 +90,18 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      2e-2, finite everywhere), their times, bounds and the same dot
      sequence as bf16 ``torch.matmul`` calls (the yardstick); the cuDNN
      layer1 stage against the dots kernel;
- 13. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
+ 13. ``crops``: crop sizes past the kernels' old caps, 128, 160, 200 and
+     224 (the stem and layer2 kernels cut wide crops into column tiles):
+     at each, ``predict_clips`` of one clip x 8 frames in fp32 on the card
+     against the CPU (the ``fp32`` phase's gates) and in bf16 (finite),
+     each with its launch counts (fp32: phase 1, fp32 stem 1; bf16: phase
+     1, stem 1, layer2 4); the phase kernel on that clip; the bf16 and
+     fp32 stem kernels and layer2 against their plain versions at 8 x 48
+     frames of the crop (every layer2 width ends in a partial 30-column
+     tile), with times and bounds as records ``<kernel>@<crop>`` in the
+     ``kernels`` line; the stem kernels at uneven (202) and three (264,
+     fp32) column tiles;
+ 14. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
      gate's bound under ``tol_max_rel`` or ``tol_abs``, the launch counts of
      each path) and, last, the device line.
 
@@ -122,7 +133,8 @@ from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
                                             PEAK_FP32_FLOP_PER_S,
                                             PEAK_TF32_FLOP_PER_S, card,
                                             max_rel, time_ms)
-from mimamo_tpu_torch.config import BackboneSpec, MimamoConfig, TrainSpec
+from mimamo_tpu_torch.config import (BackboneSpec, ClipSpec, MimamoConfig,
+                                     PyramidSpec, TrainSpec)
 from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.data.eval import evaluate_affwild2
 from mimamo_tpu_torch.kernels import (_build, layer1_dots_kernel,
@@ -378,38 +390,71 @@ def check_phase_shapes(cfg: MimamoConfig, frames: torch.Tensor) -> None:
     print(json.dumps({"phase_shapes_err": errs}), flush=True)
 
 
-def check_stem(crops: torch.Tensor, model: Mimamo) -> dict:
-    folded = model._backbone_folded()
-    w2, bias = folded.stem
+def stem_work(crops: torch.Tensor, out: torch.Tensor) -> tuple:
+    """Bytes the stem must move (the crops read once, the pooled map
+    written once) and conv1's products: 147 MACs per conv pixel (S x S of
+    them) and output channel."""
+    n, s = crops.shape[:2]
+    return (crops.numel() * 4 + out.numel() * out.element_size(),
+            2.0 * n * s * s * 64 * 147)
+
+
+def stem_record(crops: torch.Tensor, model: Mimamo, name: str,
+                plain_batch: int = 10) -> dict:
+    """The stem kernel of the model's dtype on ``crops`` [N, S, S, 3]:
+    against its plain version at the gate of its dtype (bf16 max-rel <
+    BF16_REL_TOL; fp32 max-rel <= STEM_F32_REL_TOL and max |d| <=
+    STEM_F32_ATOL), its time, the plain version's and the library call's
+    (upscale + cuDNN conv + pool in the same dtype; the fp32 one with TF32
+    off), and its bound: bf16 products at the bf16 peak, fp32 ones as
+    3xTF32 (three products each) at the TF32 peak."""
+    w2, bias = model._backbone_folded().stem
     mean = model.config.backbone.mean_rgb
+    f32 = w2.dtype == torch.float32
     got = stem_kernel.stem_fused(crops, w2, bias, mean)
     want = stem_kernel.stem_plain(crops, w2, bias, mean)
-    rel = max_rel(got, want)
-    if not rel < BF16_REL_TOL:
-        raise AssertionError(f"stem kernel max-rel {rel} >= {BF16_REL_TOL}")
+    errs = errors(got, want)
+    if f32:
+        tols = {"tol_max_rel": STEM_F32_REL_TOL, "tol_abs": STEM_F32_ATOL}
+        ok = (errs["max_rel_err"] <= STEM_F32_REL_TOL
+              and errs["max_abs_err"] <= STEM_F32_ATOL)
+    else:
+        tols = {"tol_max_rel": BF16_REL_TOL}
+        ok = errs["max_rel_err"] < BF16_REL_TOL
+    if not ok:
+        raise AssertionError(f"{name} at {tuple(crops.shape)}: {errs}, "
+                             f"gates {tols}")
     k = w2.float().reshape(7, 7, 3, 64).permute(3, 2, 0, 1).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    bias_bf = bias.to(torch.bfloat16)
+        w2.dtype).contiguous(memory_format=torch.channels_last)
+    bias_lib = bias.to(w2.dtype)
 
     def library():
-        x = for_backbone(crops, model.config.backbone).to(torch.bfloat16)
-        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), k, bias_bf,
+        x = for_backbone(crops, model.config.backbone).to(w2.dtype)
+        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), k, bias_lib,
                                        stride=2, padding=3)
         return torch.nn.functional.max_pool2d(torch.relu(y), 3, 2, 1)
 
-    n = crops.shape[0]
-    nbytes = crops.numel() * 4 + got.numel() * 2
-    flops = 2.0 * n * S * S * 64 * 147
+    nbytes, flops = stem_work(crops, got)
+    del got, want
     return record(
-        "stem_fused", "mimamo_tpu_torch/csrc/stem.cu",
-        "mimamo_tpu/pallas/stem_kernel.py:153", errors(got, want),
-        {"tol_max_rel": BF16_REL_TOL},
+        name, "mimamo_tpu_torch/csrc/stem.cu",
+        "mimamo_tpu/pallas/stem_kernel.py:153", errs, tols,
         time_ms(lambda: stem_kernel.stem_fused(crops, w2, bias, mean)),
-        time_ms(lambda: stem_kernel.stem_plain(crops, w2, bias, mean)),
-        nbytes, flops, time_ms(library))
+        time_ms(lambda: stem_kernel.stem_plain(crops, w2, bias, mean),
+                batch=plain_batch),
+        nbytes, 3 * flops if f32 else flops, time_ms(library),
+        PEAK_TF32_FLOP_PER_S if f32 else PEAK_BF16_FLOP_PER_S)
 
 
-def check_layer2(crops: torch.Tensor, model: Mimamo) -> dict:
+def check_stem(crops: torch.Tensor, model: Mimamo) -> dict:
+    return stem_record(crops, model, "stem_fused")
+
+
+def check_layer2(crops: torch.Tensor, model: Mimamo,
+                 name: str = "layer2_fused", plain_batch: int = 10) -> dict:
+    """layer2 on the layer1 output of ``crops``: against its plain version
+    (max-rel < BF16_REL_TOL), its time, the plain version's, four cuDNN
+    bottlenecks' (the library call) and its bound."""
     folded = model._backbone_folded()
     w2, bias = folded.stem
     stem = stem_kernel.stem_fused(crops, w2, bias,
@@ -425,9 +470,9 @@ def check_layer2(crops: torch.Tensor, model: Mimamo) -> dict:
                              f"{BF16_REL_TOL}")
     lib = []
     for blk in blocks:
-        lib.append({name: (c.weight.permute(0, 3, 1, 2).contiguous(
+        lib.append({conv: (c.weight.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last), c.bias.to(torch.bfloat16),
-            c.stride, c.weight.shape[1] // 2) for name, c in blk.items()})
+            c.stride, c.weight.shape[1] // 2) for conv, c in blk.items()})
 
     def library():
         v = x.permute(0, 3, 1, 2)
@@ -444,12 +489,15 @@ def check_layer2(crops: torch.Tensor, model: Mimamo) -> dict:
     nbytes = x.numel() * 2 + got.numel() * 2 + sum(
         c.weight.numel() * 2 + c.bias.numel() * 4
         for blk in blocks for c in blk.values())
+    errs = errors(got, want)
+    del got, want
     return record(
-        "layer2_fused", "mimamo_tpu_torch/csrc/layer2.cu",
-        "mimamo_tpu/pallas/layer2_kernel.py:174", errors(got, want),
+        name, "mimamo_tpu_torch/csrc/layer2.cu",
+        "mimamo_tpu/pallas/layer2_kernel.py:174", errs,
         {"tol_max_rel": BF16_REL_TOL},
         time_ms(lambda: layer2_kernel.layer2_fused(x, blocks)),
-        time_ms(lambda: layer2_kernel.layer2_plain(x, blocks)),
+        time_ms(lambda: layer2_kernel.layer2_plain(x, blocks),
+                batch=plain_batch),
         nbytes, flops, time_ms(library))
 
 
@@ -955,9 +1003,9 @@ def check_stem_f32(crops: torch.Tensor, model: Mimamo) -> dict:
     """The fp32 stem kernel against its plain version (TF32 off) at the
     flagship step, at the api phase's frame counts (64, 256, 300) and at
     small ragged shapes (34^2 with an odd pooled-row count, 5 x 112^2, the
-    widest crop the form takes, 128^2, and the narrowest, 8^2); its times
-    and the bounds of two designs: 3xTF32 tensor-core products, which it
-    uses and which its record's bound follows, and fp32 FMAs."""
+    widest crop of one column tile, 128^2, and the narrowest, 8^2); its
+    times and the bounds of two designs: 3xTF32 tensor-core products,
+    which it uses and which its record's bound follows, and fp32 FMAs."""
     w2, bias = model._backbone_folded().stem
     if w2.dtype != torch.float32:
         raise AssertionError(f"the default config's stem is {w2.dtype}")
@@ -967,7 +1015,7 @@ def check_stem_f32(crops: torch.Tensor, model: Mimamo) -> dict:
     errs = {"flagship": errors(got, want)}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     for n, s in ((API_BATCH, S), (API_CHUNK, S), (API_T, S), (3, 34), (5, S),
-                 (2, stem_kernel.MAX_CROP_F32), (2, 8)):
+                 (2, 2 * stem_kernel.TILE_Q_F32), (2, 8)):
         c = torch.rand((n, s, s, 3), device="cuda", generator=gen) * 255
         errs[f"n{n}_s{s}"] = errors(stem_kernel.stem_fused(c, w2, bias, mean),
                                     stem_kernel.stem_plain(c, w2, bias, mean))
@@ -979,29 +1027,13 @@ def check_stem_f32(crops: torch.Tensor, model: Mimamo) -> dict:
     if not all(e["max_rel_err"] <= STEM_F32_REL_TOL
                and e["max_abs_err"] <= STEM_F32_ATOL for e in errs.values()):
         raise AssertionError(f"fp32 stem kernel: {errs}")
-    k = w2.reshape(7, 7, 3, 64).permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-
-    def library():
-        x = for_backbone(crops, model.config.backbone)
-        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), k, bias,
-                                       stride=2, padding=3)
-        return torch.nn.functional.max_pool2d(torch.relu(y), 3, 2, 1)
-
-    n = crops.shape[0]
-    nbytes = crops.numel() * 4 + got.numel() * 4
-    flops = 2.0 * n * S * S * 64 * 147
+    nbytes, flops = stem_work(crops, got)
+    del got, want
     print(json.dumps({"stem_f32_bound_ms": {
         "ffma": bound_ms(nbytes, flops, PEAK_FP32_FLOP_PER_S)[0],
         "3xtf32": bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)[0],
         "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}}), flush=True)
-    return record(
-        "stem_fused[f32]", "mimamo_tpu_torch/csrc/stem.cu",
-        "mimamo_tpu/pallas/stem_kernel.py:153", errs["flagship"],
-        {"tol_max_rel": STEM_F32_REL_TOL, "tol_abs": STEM_F32_ATOL},
-        time_ms(lambda: stem_kernel.stem_fused(crops, w2, bias, mean)),
-        time_ms(lambda: stem_kernel.stem_plain(crops, w2, bias, mean)),
-        nbytes, 3 * flops, time_ms(library), PEAK_TF32_FLOP_PER_S)
+    return stem_record(crops, model, "stem_fused[f32]")
 
 
 def check_fp32(state: dict, clips: np.ndarray, small_cpu: tuple,
@@ -1808,6 +1840,147 @@ def check_probes(line: str):
     return recs, launches
 
 
+CROPS = (128, 160, 200, 224)   # crop sizes of the crops phase
+# the stem kernels at crops whose column tiles are uneven (202: 51 + 50
+# pooled columns in both forms) or three (264 in fp32)
+TILE_CROPS = (202, 264)
+CROP_CLIP_T = 8                # frames of the card-vs-CPU clip at each crop
+
+
+def crop_config(s: int, dtype: str = "float32") -> MimamoConfig:
+    """The default config at crop ``s``: pyramid input s x s, backbone
+    input 2s (the exact upscale the port runs), clips of s."""
+    return MimamoConfig(pyramid=PyramidSpec(input_size=(s, s)),
+                        backbone=BackboneSpec(input_size=2 * s, dtype=dtype),
+                        clip=ClipSpec(crop_size=s))
+
+
+def dphi_flips(card_bands: list, cpu_bands: list) -> dict:
+    """The card's pyramid bands (cuFFT) against the CPU's (its own FFT):
+    their max-rel difference, the largest difference of a phase difference
+    between the two, and the source pixels where the two lie on the two
+    sides of the +-pi wrap (|d| > pi: a band difference moves an angle
+    near +-pi across it, a 2 pi jump)."""
+    out = {"flips": 0, "bands_max_rel": 0.0, "dphi_max_abs_unflipped": 0.0}
+    for g, c in zip(card_bands, cpu_bands):
+        g = g.cpu()
+        out["bands_max_rel"] = max(out["bands_max_rel"], max_rel(
+            torch.view_as_real(g), torch.view_as_real(c)))
+        d = (torch.angle(g[:, 1:] * g[:, :-1].conj())
+             - torch.angle(c[:, 1:] * c[:, :-1].conj())).abs()
+        out["flips"] += int((d > np.pi).sum())
+        out["dphi_max_abs_unflipped"] = max(out["dphi_max_abs_unflipped"],
+                                            float(d[d <= np.pi].max()))
+    return out
+
+
+def check_crops(state: dict, line: str) -> tuple:
+    """Crops the JAX package runs past the kernels' old caps (CROPS): at
+    each, ``predict_clips`` of one clip x 8 frames in fp32 on the card
+    against the CPU (the ``fp32`` phase's gates; the CPU forward takes the
+    card's pyramid bands, and its own bands' forward must agree too unless
+    a phase difference flips over the +-pi wrap between the two FFTs, see
+    :func:`dphi_flips`) with its launches, and in
+    bf16 (finite, with its launches: stem 1, layer2 4); the phase kernel on
+    that clip's bands; the bf16 and fp32 stem kernels and layer2 against
+    their plain versions at B x T frames of the crop, with their times and
+    bounds (records named ``<kernel>@<crop>``, launches from that crop's
+    forward); the stem kernels at TILE_CROPS. Every layer2 width here
+    (32, 40, 50, 56) ends in a partial 30-column tile. Returns (records,
+    report)."""
+    rng = np.random.default_rng(SEED + 30)
+    recs, report = [], {"card": line}
+    for s in CROPS:
+        clip = rng.integers(0, 256, (1, CROP_CLIP_T, s, s, 3), dtype=np.uint8)
+        row = report[s] = {}
+        cfg = crop_config(s)
+        k, p = cfg.pyramid.orientations, cfg.phase.phase_size
+        cpu = Mimamo(cfg, device="cpu")
+        cpu.load_state_dict(state)
+        gray = to_grayscale(torch.from_numpy(clip).cuda().float())
+        card_bands = phase_bands(gray, cfg)
+        with torch.no_grad():
+            cpu_out = cpu.predict_clips(clip)
+            cpu_emb = cpu.embed_frames(torch.from_numpy(clip).float())
+            stacks = torch.empty((1, CROP_CLIP_T - 1, cfg.num_phase, p, p))
+            phase_kernel.phase_diff_resize_scales(
+                [b.cpu() for b in card_bands], stacks,
+                [i * k for i in range(len(card_bands))], False)
+            cpu_out_card_bands, _ = cpu.temporal(stacks, cpu_emb)
+            row["card_vs_cpu_fft"] = dphi_flips(
+                card_bands, phase_bands(gray.cpu(), cfg))
+        del cpu
+        models = {}
+        for dtype, fp32 in (("float32", True), ("bfloat16", False)):
+            model = models[dtype] = Mimamo(crop_config(s, dtype))
+            model.load_state_dict(state)
+            with torch.no_grad():
+                model.predict_clips(clip)                    # warm-up
+                out, row[f"launches_{dtype}"] = counted(
+                    lambda: model.predict_clips(clip),
+                    expected_launches(fp32=fp32))
+                emb = model.embed_frames(torch.from_numpy(clip).cuda().float())
+            if tuple(out.shape) != (1, CROP_CLIP_T, 2) or \
+                    not torch.isfinite(out).all():
+                raise AssertionError(f"{dtype} predict_clips at crop {s} "
+                                     f"gave {tuple(out.shape)}")
+            if fp32:
+                row["fp32_card_vs_cpu_emb_max_rel"] = max_rel(emb.cpu(),
+                                                              cpu_emb)
+                row["fp32_card_vs_cpu_out_max_rel"] = max_rel(
+                    out.cpu(), cpu_out_card_bands)
+                row["fp32_card_vs_cpu_own_fft_out_max_rel"] = max_rel(
+                    out.cpu(), cpu_out)
+            else:
+                row["bf16_card_vs_cpu_out_max_rel"] = max_rel(out.cpu(),
+                                                              cpu_out)
+        if not (row["fp32_card_vs_cpu_emb_max_rel"] <= FP32_EMB_REL_TOL
+                and row["fp32_card_vs_cpu_out_max_rel"] <= FP32_OUT_REL_TOL
+                and (row["card_vs_cpu_fft"]["flips"] or row[
+                    "fp32_card_vs_cpu_own_fft_out_max_rel"]
+                    <= FP32_OUT_REL_TOL)):
+            raise AssertionError(f"crop {s}: fp32 card and CPU disagree: "
+                                 f"{row}")
+        row["phase_err"] = phase_errs(card_bands, cfg, f"crop {s}")[False]
+        crops = torch.from_numpy(rng.integers(
+            0, 256, (B * T, s, s, 3), dtype=np.uint8)).cuda().float()
+        with torch.no_grad():
+            for kernel, dtype, check in (
+                    ("stem_fused", "bfloat16", stem_record),
+                    ("stem_fused[f32]", "float32", stem_record),
+                    ("layer2_fused", "bfloat16", check_layer2)):
+                rec = check(crops, models[dtype], f"{kernel}@{s}",
+                            plain_batch=2)
+                rec["crop"] = s
+                rec["launches"] = row[f"launches_{dtype}"][kernel]
+                recs.append(rec)
+        del crops, models
+        torch.cuda.empty_cache()
+        print(json.dumps({"crop": s, **row}), flush=True)
+    tiles = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    for dtype in ("bfloat16", "float32"):
+        model = Mimamo(crop_config(S, dtype))
+        model.load_state_dict(state)
+        w2, bias = model._backbone_folded().stem
+        mean = model.config.backbone.mean_rgb
+        for s in TILE_CROPS:
+            c = torch.rand((3, s, s, 3), device="cuda", generator=gen) * 255
+            tiles[f"{dtype}_s{s}"] = {
+                "tiles": len(stem_kernel.tile_plan(s, w2.dtype)),
+                **errors(stem_kernel.stem_fused(c, w2, bias, mean),
+                         stem_kernel.stem_plain(c, w2, bias, mean))}
+        del model
+    report["stem_tile_crops"] = tiles
+    print(json.dumps({"stem_tile_crops": tiles}), flush=True)
+    if not all(e["max_rel_err"] < BF16_REL_TOL if k.startswith("bf")
+               else (e["max_rel_err"] <= STEM_F32_REL_TOL
+                     and e["max_abs_err"] <= STEM_F32_ATOL)
+               for k, e in tiles.items()):
+        raise AssertionError(f"stem kernels at uneven tiles: {tiles}")
+    return recs, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1935,6 +2108,12 @@ def main() -> int:
     for rec in recs:
         rec["launches_serve_feed"] = serve_launches[rec["name"]]
         rec["launches_cli_predict"] = cli_launches[rec["name"]]
+
+    # -- every crop size ---------------------------------------------------------
+    t = time.perf_counter()
+    crop_recs, _ = check_crops(state, line)
+    print(json.dumps({"crops_s": time.perf_counter() - t}), flush=True)
+    recs += crop_recs
     print(json.dumps({"smoke_s": time.perf_counter() - t_start}), flush=True)
 
     print(json.dumps({"kernels": recs}), flush=True)

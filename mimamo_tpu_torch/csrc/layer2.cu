@@ -11,18 +11,23 @@
 // Bound on the H100: operations. layer2 is 1.90 GFLOP per 56x56x256 frame
 // against ~1.2 MB of activations in and out (x once, out once).
 //
-// Design. The TPU kernel's padded grid carries over: a frame's H x W
-// output lives on a grid of row stride 32 (column 0 and columns past W are
-// zero padding), so a 3x3 tap is a shift of the grid by 32 * dy + dx rows.
-// A CTA owns 4 output rows of one frame (128 grid positions, two wgmma
-// m64 tiles) and computes, for those rows only:
+// Design. The TPU kernel's padded grid carries over: a tile of the frame's
+// output lives on a grid of row stride 32, so a 3x3 tap is a shift of the
+// grid by 32 * dy + dx rows. A CTA owns 4 output rows and one column tile
+// of one frame: kTileW = 30 output columns c0 .. c0 + 29 at grid columns
+// 1 .. 30, with the frame's columns c0 - 1 and c0 + 30 at grid columns 0
+// and 31 as halo (128 grid positions, two wgmma m64 tiles). A frame of
+// W <= 30 is one column tile, the layout of the TPU kernel. The CTA
+// computes, for its rows and tile only:
 //   conv1 on 6 grid rows (one halo row above and below): A is the input
-//     tile, loaded by a 5-D TMA box that starts at column -1 and row r0 - 1
-//     so the hardware's zero fill of out-of-bounds elements produces the
-//     padded grid; block 0 views [N, 2H, 2W, 256] as [N, H, 2, W, 512] and
-//     takes parity 0 and lanes 0..255, which are exactly the stride-2
-//     pixels. y1 = relu(. + b1), zeroed at padding, is stored as bf16 in
-//     shared memory only.
+//     tile, loaded by a 5-D TMA box that starts at column c0 - 1 and row
+//     r0 - 1 so the hardware's zero fill of out-of-bounds elements pads
+//     the frame's edges; block 0 views [N, 2H, 2W, 256] as
+//     [N, H, 2, W, 512] and takes parity 0 and lanes 0..255, which are
+//     exactly the stride-2 pixels. y1 = relu(. + b1) is stored as bf16 in
+//     shared memory only, zeroed where the grid lies outside the frame
+//     (the halo columns of an inner tile are real pixels, computed as any
+//     other).
 //   conv2 as 9 taps x 128 channels: A is y1, kept without swizzle
 //     (8-row x 16-byte core matrices), so each tap's row shift is a 16-byte
 //     step of the wgmma descriptor. y2 = relu(. + b2) overwrites y1.
@@ -30,14 +35,14 @@
 //     registers); block 0 accumulates its projection into the same
 //     registers by concatenating K ([y2 | x_even] . [W3 ; Wd]). The
 //     epilogue adds the biases and the residual in fp32, applies relu,
-//     rounds to bf16, stages the tile in shared memory and writes its
-//     valid pixels with 16-byte stores.
+//     rounds to bf16, stages the tile in shared memory and writes the
+//     tile's pixels inside the frame with 16-byte stores.
 // y1, y2 and the projection never reach device memory. Warp
 // specialisation: warp 8 issues every TMA load through a 3-slot ring of
 // mbarrier-guarded slots; warpgroups 0 and 1 issue wgmma (bf16 operands,
 // fp32 accumulators) from shared memory, keeping one group in flight.
-// The output width is at most 31 (the grid's row stride less its one
-// left padding column).
+// Any output width runs: ceil(W / 30) column tiles, each recomputing its
+// two halo columns of y1 (1/15 of conv1 for a frame of many tiles).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +55,7 @@ namespace {
 using namespace hopper;
 
 constexpr int kG = 32;                       // grid row stride
+constexpr int kTileW = kG - 2;               // output columns of a tile
 constexpr int kRowsOut = 4;                  // output rows per CTA
 constexpr int kM1 = (kRowsOut + 2) * kG;     // 192 y1 grid positions
 constexpr int kWidth = 128, kOut = 512;
@@ -77,7 +83,8 @@ struct Params {
   const float* b2;
   const float* b3;
   const float* bd;             // projection bias (block 0), or null
-  int H, W, tiles, kc1;        // kc1: conv1's 64-channel K chunks
+  int H, W, tiles, ctiles, kc1;  // row and column tiles; kc1: conv1's
+                                 // 64-channel K chunks
 };
 
 struct Ring {
@@ -107,8 +114,12 @@ block_kernel(const __grid_constant__ Params p) {
   uint64_t* full = reinterpret_cast<uint64_t*>(bias + kBiasFloats);
   uint64_t* empty = full + kStages;
 
-  const int n = blockIdx.x / p.tiles;
-  const int r0 = (blockIdx.x % p.tiles) * kRowsOut;
+  const int n = blockIdx.x / p.ctiles / p.tiles;
+  const int r0 = (blockIdx.x / p.ctiles % p.tiles) * kRowsOut;
+  const int c0 = (blockIdx.x % p.ctiles) * kTileW;   // first output column
+  const int tile_w = min(kTileW, p.W - c0);   // output columns of the tile
+  // is grid column gc (0 .. kG-1) of this tile's row a stored output?
+  auto stored = [&](int gc) { return gc >= 1 && gc <= tile_w; };
   const int tid = threadIdx.x;
   const bool proj = p.bd != nullptr;
 
@@ -143,7 +154,7 @@ block_kernel(const __grid_constant__ Params p) {
       unsigned char* slot = ring + r.slot * kSlotBytes;
       mbar_expect_tx(&full[r.slot], (with_x ? kABytes : 0) + kBBytes);
       if (with_x)
-        tma_load_5d(slot, &p.x, &full[r.slot], xc, -1, 0, r0 - 1, n);
+        tma_load_5d(slot, &p.x, &full[r.slot], xc, c0 - 1, 0, r0 - 1, n);
       tma_load_2d(slot + kABytes, wmap, &full[r.slot], wk, wn);
       r.next();
     };
@@ -215,8 +226,8 @@ block_kernel(const __grid_constant__ Params p) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int q = 64 * mt + fr + 8 * hh;
-        const int gr = r0 - 1 + q / kG, gc = q % kG;
-        const bool ok = gr >= 0 && gr < p.H && gc >= 1 && gc <= p.W;
+        const int gr = r0 - 1 + q / kG, col = c0 - 1 + q % kG;
+        const bool ok = gr >= 0 && gr < p.H && col >= 0 && col < p.W;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float v0 = fmaxf(acc[mt][4 * j + 2 * hh] + bb[j].x, 0.f);
@@ -280,10 +291,10 @@ block_kernel(const __grid_constant__ Params p) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int o = o0 + fr + 8 * hh;
-      const int gr = r0 + o / kG, gc = o % kG - 1;
-      const bool ok = !proj && gr < p.H && gc >= 0 && gc < p.W;
+      const int gr = r0 + o / kG, col = c0 + o % kG - 1;
+      const bool ok = !proj && gr < p.H && stored(o % kG);
       const uint32_t* src = reinterpret_cast<const uint32_t*>(
-          p.xres + ((static_cast<long long>(n) * p.H + gr) * p.W + gc) * kOut +
+          p.xres + ((static_cast<long long>(n) * p.H + gr) * p.W + col) * kOut +
           128 * nc + fc);
 #pragma unroll
       for (int j = 0; j < 16; ++j) res[2 * j + hh] = ok ? src[4 * j] : 0u;
@@ -312,10 +323,10 @@ block_kernel(const __grid_constant__ Params p) {
     // 16-byte stores of the valid pixels: 16 threads per 256-byte pixel row
     for (int i = t; i < 64 * 16; i += 128) {
       const int row = i / 16, c = i % 16, o = o0 + row;
-      const int gr = r0 + o / kG, gc = o % kG - 1;
-      if (gr >= p.H || gc < 0 || gc >= p.W) continue;
+      const int gr = r0 + o / kG, col = c0 + o % kG - 1;
+      if (gr >= p.H || !stored(o % kG)) continue;
       *reinterpret_cast<uint4*>(
-          p.out + ((static_cast<long long>(n) * p.H + gr) * p.W + gc) * kOut +
+          p.out + ((static_cast<long long>(n) * p.H + gr) * p.W + col) * kOut +
           128 * nc + 8 * c) =
           *reinterpret_cast<const uint4*>(my_stg + row * kStgPitch + 16 * c);
     }
@@ -349,7 +360,7 @@ int encode_weight(CUtensorMap* map, const void* w, int rows, int k) {
 // and the projection (wd, bd) take its stride-2 pixels. cin == 512: x is
 // [N, H, W, 512] and the residual is x itself (wd, bd null). Weights are
 // OHWI bf16 ([128, cin], [128, 3, 3, 128], [512, 128], [512, 256]), biases
-// fp32; out is [N, H, W, 512] bf16. W <= 31. Returns cudaGetLastError(),
+// fp32; out is [N, H, W, 512] bf16, any H, W >= 1. Returns cudaGetLastError(),
 // or 10000 + the CUresult when a tensor map cannot be encoded.
 extern "C" int mimamo_layer2_block(const void* x, const void* w1,
                                    const void* w2, const void* w3,
@@ -357,7 +368,7 @@ extern "C" int mimamo_layer2_block(const void* x, const void* w1,
                                    const void* b2, const void* b3,
                                    const void* bd, void* out, int N, int H,
                                    int W, int cin, void* stream) {
-  if (W < 1 || W > kG - 1 || H < 1 || (cin != 256 && cin != 512) ||
+  if (W < 1 || H < 1 || N < 1 || (cin != 256 && cin != 512) ||
       (cin == 256) != (wd != nullptr) || (wd != nullptr) != (bd != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -388,11 +399,14 @@ extern "C" int mimamo_layer2_block(const void* x, const void* w1,
   p.H = H;
   p.W = W;
   p.tiles = (H + kRowsOut - 1) / kRowsOut;
+  p.ctiles = (W + kTileW - 1) / kTileW;
   p.kc1 = cin / 64;
+  const long long blocks = static_cast<long long>(N) * p.tiles * p.ctiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  block_kernel<<<N * p.tiles, kThreads, kSmemBytes,
+  block_kernel<<<static_cast<int>(blocks), kThreads, kSmemBytes,
                  static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,8 @@
 // conv pixel and channel (90.6 GFLOP for 384 crops of 112^2) against ~212 MB
 // of crop read plus pooled map written.
 //
-// Design: one block per (crop, strip of kRows pooled rows). The block forms
+// Design: one block per (crop, strip of kRows pooled rows, tile of pooled
+// columns). The block forms
 // the strip's upscaled rows in shared memory from the crop (fp32 mean-sub
 // and interleave upscale, rounded to bf16 where conv1 casts, stored as
 // bf16; zero outside [0, 2S), which is conv1's zero padding), so the
@@ -30,6 +31,23 @@
 // values are >= 0. kRows = 4 pooled rows per block computes 9 conv rows for
 // 8 (12% recompute) and keeps shared memory small enough for two blocks per
 // SM at S = 112.
+//
+// Column tiles. Shared memory grows with the conv columns a block holds, so
+// a crop whose S/2 pooled columns exceed kTileQ is cut into tiles of at
+// most kTileQ pooled columns, evened out (Tiles below). A tile of pooled
+// columns q0 .. q1-1 computes conv columns 2q0-1 .. 2q1-1 (from 0 in the
+// first tile: column -1 is the pool's padding) from upscaled columns
+// 2(2q0-1)-3 onwards, zero outside [0, 2S) as in the whole crop; one conv
+// column in 2(q1-q0) is computed twice. Shared memory then depends on the
+// widest tile, not on S, and the launch takes any even S >= 8. kTileQ = 96
+// keeps every crop up to 192 in one tile, as before the tiles. Each form is
+// compiled twice: kTiled = false for a crop of one tile (every tile field
+// derives from S: the flagship's code is that of the kernel before the
+// tiles) and kTiled = true. The bf16 form asks for two blocks per SM (at
+// most 144 registers), which S = 112 and two tiles of 50 pooled columns
+// fit in shared memory: left to itself, ptxas gave the one-tile form 187
+// registers, one block per SM and 1.8 ms for the 1.16 ms kernel at
+// 384 x 112^2 (H100).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,15 +63,46 @@ constexpr int kKy = 24;                   // padded taps per ky
 constexpr int kK = 176;                   // 7 * 24 padded to 11 k16 steps
 constexpr int kPitch = kOut + 8;          // bf16 pitch of weight / conv rows
 
-// bf16 elements of one upscaled strip row: columns -3 .. 2S+2, 3 channels
-__host__ __device__ inline int row_elems(int S) { return 6 * S + 18; }
+constexpr int kTileQ = 96;                // pooled columns a tile, at most
 
-__host__ __device__ inline int strip_bytes(int S) {
-  return (kURows * row_elems(S) * 2 + 15) / 16 * 16;
+// Elements of one upscaled strip row for a tile of nc conv columns: its
+// upscaled columns 2 c0 - 3 .. 2 (c0 + nc) + 2, 3 channels (the last 3 are
+// read only by the zero-weight taps).
+__host__ __device__ inline int row_elems(int nc) { return 6 * nc + 18; }
+
+__host__ __device__ inline int strip_bytes(int nc) {
+  return (kURows * row_elems(nc) * 2 + 15) / 16 * 16;
 }
 
-inline int smem_bytes(int S) {
-  return strip_bytes(S) + kK * kPitch * 2 + 3 * S * kPitch * 2;
+inline int smem_bytes(int nc) {
+  return strip_bytes(nc) + kK * kPitch * 2 + 3 * nc * kPitch * 2;
+}
+
+// The column tiles of a crop: `count` tiles of pooled columns, evened out,
+// each of at most q_max; tile t holds pooled columns q0 .. q1-1 and conv
+// columns c0 .. c0 + nc - 1; nc_max is the widest tile's nc (S for one).
+struct Tiles {
+  int count, nc_max;
+  __host__ __device__ Tiles(int S, int q_max) {
+    const int sp = S / 2;
+    count = (sp + q_max - 1) / q_max;
+    nc_max = count == 1 ? S : 2 * ((sp + count - 1) / count) + 1;
+  }
+};
+
+struct Tile {
+  int q0, q1, c0, nc;
+};
+
+// This block's tile: blockIdx.x % tiles of a crop's column tiles; with
+// kTiled = false, the whole crop.
+template <bool kTiled>
+__device__ __forceinline__ Tile block_tile(int S, int tiles) {
+  if (!kTiled) return Tile{0, S / 2, 0, S};
+  const int sp = S / 2, t = blockIdx.x % tiles;
+  const int q0 = t * sp / tiles, q1 = (t + 1) * sp / tiles;
+  const int c0 = q0 == 0 ? 0 : 2 * q0 - 1;
+  return Tile{q0, q1, c0, 2 * q1 - c0};
 }
 
 // Row-interpolated crop value at crop (row of upscaled row ur, column col),
@@ -114,28 +163,32 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(a));
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kTiled>
+__global__ void __launch_bounds__(kThreads, 2)
 stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w,
             const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-            int S, float m0, float m1, float m2) {
+            int S, int tiles, int nc_max, float m0, float m1, float m2) {
+  if (!kTiled) tiles = 1, nc_max = S;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rowlen = row_elems(S);
+  const int rowlen = row_elems(nc_max);
   __nv_bfloat16* su = reinterpret_cast<__nv_bfloat16*>(smem);  // strip
   __nv_bfloat16* sw =                                           // [kK][kPitch]
-      reinterpret_cast<__nv_bfloat16*>(smem + strip_bytes(S));
-  __nv_bfloat16* sc = sw + kK * kPitch;                  // [3][S][kPitch]
+      reinterpret_cast<__nv_bfloat16*>(smem + strip_bytes(nc_max));
+  __nv_bfloat16* sc = sw + kK * kPitch;             // [3][nc_max][kPitch]
   const int sp = S / 2;
   const int strips = (sp + kRows - 1) / kRows;
-  const int n = blockIdx.x / strips;
-  const int pr0 = (blockIdx.x % strips) * kRows;
+  const Tile tile = block_tile<kTiled>(S, tiles);
+  const int n = blockIdx.x / tiles / strips;
+  const int pr0 = (blockIdx.x / tiles % strips) * kRows;
   const float* img = crops + static_cast<long long>(n) * S * S * 3;
   const float mean[3] = {m0, m1, m2};
   const int tid = threadIdx.x;
 
   const int ur0 = 4 * pr0 - 5;                 // first upscaled row
+  const int uc0 = 2 * tile.c0 - 3;             // first upscaled column
   for (int i = tid; i < kURows * rowlen; i += kThreads) {
     const int row = i / rowlen, e = i % rowlen;
-    su[i] = upscaled(img, S, ur0 + row, e / 3 - 3, e % 3, mean[e % 3]);
+    su[i] = upscaled(img, S, ur0 + row, uc0 + e / 3, e % 3, mean[e % 3]);
   }
   for (int i = tid; i < kK * kOut; i += kThreads) {
     const int k = i / kOut, o = i % kOut;
@@ -147,7 +200,8 @@ stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w
 
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, q = lane % 4;
-  const int tpr = (S + 15) / 16;               // m16 tiles per conv row
+  const int nc = tile.nc;
+  const int tpr = (nc + 15) / 16;              // m16 tiles per conv row
   // ldmatrix row of this lane within a k16 x n16 block of the weights
   const __nv_bfloat16* bsrc =
       sw + ((lane % 8) + 8 * ((lane / 8) % 2)) * kPitch + 8 * (lane / 16);
@@ -167,7 +221,7 @@ stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w
         col0[i] = (t % tpr) * 16;
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          base[i][h] = 2 * jl[i] * rowlen + 6 * min(col0[i] + g + 8 * h, S - 1);
+          base[i][h] = 2 * jl[i] * rowlen + 6 * min(col0[i] + g + 8 * h, nc - 1);
       }
       float acc[2][8][4];
 #pragma unroll
@@ -204,11 +258,11 @@ stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w
         if (t0 + i * kWarps >= ntiles) continue;
         const int cr = 2 * pr0 - 1 + jl[i];      // global conv row
         const bool valid = cr >= 0 && cr < S;
-        __nv_bfloat16* dst = sc + (jl[i] % 3) * S * kPitch;
+        __nv_bfloat16* dst = sc + (jl[i] % 3) * nc_max * kPitch;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int cc = col0[i] + g + 8 * h;
-          if (cc >= S) continue;
+          const int cc = col0[i] + g + 8 * h;   // local conv column
+          if (cc >= nc) continue;
 #pragma unroll
           for (int nt = 0; nt < 8; ++nt) {
             const int o = 8 * nt + 2 * q;
@@ -225,18 +279,19 @@ stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w
     const int pr = pr0 + gi - 1;
     if (gi > 0 && pr < sp) {
       // 3x3/2 max pool of local conv rows 2gi - 2 .. 2gi, 8 channels a thread
-      for (int i = tid; i < sp * (kOut / 8); i += kThreads) {
-        const int c8 = i % (kOut / 8), pc = i / (kOut / 8);
+      for (int i = tid; i < (tile.q1 - tile.q0) * (kOut / 8); i += kThreads) {
+        const int c8 = i % (kOut / 8), pc = tile.q0 + i / (kOut / 8);
         __nv_bfloat162 best[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) best[e] = __floats2bfloat162_rn(0.f, 0.f);
         for (int dj = 0; dj < 3; ++dj) {
-          const __nv_bfloat16* row = sc + ((2 * gi - 2 + dj) % 3) * S * kPitch;
+          const __nv_bfloat16* row =
+              sc + ((2 * gi - 2 + dj) % 3) * nc_max * kPitch;
           for (int dc = -1; dc <= 1; ++dc) {
-            const int cc = 2 * pc + dc;
+            const int cc = 2 * pc + dc;          // conv column
             if (cc < 0) continue;
-            const uint4 v =
-                *reinterpret_cast<const uint4*>(row + cc * kPitch + 8 * c8);
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                row + (cc - tile.c0) * kPitch + 8 * c8);
             const __nv_bfloat162* vv = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
             for (int e = 0; e < 4; ++e) best[e] = __hmax2(best[e], vv[e]);
@@ -263,8 +318,8 @@ stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w
 // largest output, under the 1e-5 gate. Plain TF32 (hi * hi alone) keeps ~3
 // decimal digits, and stem outputs reach the hundreds.
 //
-// Same block structure as the bf16 form (one block per crop and strip of
-// kRows pooled rows, the strip's upscaled rows in shared memory, a ring of
+// Same block structure as the bf16 form (one block per crop, strip of kRows
+// pooled rows and column tile, the strip's upscaled rows in shared memory, a ring of
 // 3 conv rows, pooling as soon as a pooled row's 3 conv rows exist) and
 // the same implicit GEMM: M = conv pixels of a conv row in m16 tiles, two
 // tiles a warp; N = 64 in eight n8 tiles; K = 7 ky x 24 = 168 = 21 k8
@@ -279,8 +334,10 @@ stem_kernel(const float* __restrict__ crops, const __nv_bfloat16* __restrict__ w
 //
 // Everything is fp32 in shared memory: at S = 112 the strip is 63,488 B,
 // the weights 48,384 B and the ring 91,392 B (203,264 B, one block per
-// SM); at S = kMaxCrop = 128, 225,152 B of the 232,448 a block may have,
-// and the launch refuses larger crops. kWarps = 7: a pass over two conv
+// SM); at S = 128, 225,152 B of the 232,448 a block may have. Past 128
+// the crop is cut into column tiles of at most kTileQ = 64 pooled columns
+// (the widest, 129 conv columns, takes 226,512 B), so every crop up to
+// 128 is one tile, as before the tiles. kWarps = 7: a pass over two conv
 // rows at S = 112 is 14 m16 tiles, two for each warp; the pass over the
 // strip's first conv row gives each warp one tile.
 //
@@ -296,14 +353,14 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kK = 7 * kKy;               // 168 = 21 k8 steps
 constexpr int kWPitch = kOut + 8;         // fp32 pitch of a weight row
 constexpr int kPitch = kOut + 4;          // fp32 pitch of a conv ring row
-constexpr int kMaxCrop = 128;
+constexpr int kTileQ = 64;                // pooled columns a tile, at most
 
-__host__ __device__ inline int strip_bytes(int S) {
-  return (kURows * row_elems(S) * 4 + 15) / 16 * 16;
+__host__ __device__ inline int strip_bytes(int nc) {
+  return (kURows * row_elems(nc) * 4 + 15) / 16 * 16;
 }
 
-inline int smem_bytes(int S) {
-  return strip_bytes(S) + kK * kWPitch * 4 + 3 * S * kPitch * 4;
+inline int smem_bytes(int nc) {
+  return strip_bytes(nc) + kK * kWPitch * 4 + 3 * nc * kPitch * 4;
 }
 
 // x rounded to tf32 (10 explicit mantissa bits, ties away from zero), as
@@ -333,7 +390,8 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
 template <int kTiles>
 __device__ __forceinline__ void conv_tiles(
     const float* su, const float* sw, float* sc, const float* bias, int S,
-    int rowlen, int pr0, int first, int tpr, int t0, int g, int q) {
+    int nc, int nc_max, int rowlen, int pr0, int first, int tpr, int t0,
+    int g, int q) {
   int jl[kTiles], col0[kTiles], base[kTiles][2];
 #pragma unroll
   for (int i = 0; i < kTiles; ++i) {
@@ -342,7 +400,7 @@ __device__ __forceinline__ void conv_tiles(
     col0[i] = (t % tpr) * 16;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      base[i][h] = 2 * jl[i] * rowlen + 6 * min(col0[i] + g + 8 * h, S - 1);
+      base[i][h] = 2 * jl[i] * rowlen + 6 * min(col0[i] + g + 8 * h, nc - 1);
   }
   float acc[kTiles][8][4];
 #pragma unroll
@@ -382,11 +440,11 @@ __device__ __forceinline__ void conv_tiles(
   for (int i = 0; i < kTiles; ++i) {
     const int cr = 2 * pr0 - 1 + jl[i];        // global conv row
     const bool valid = cr >= 0 && cr < S;
-    float* dst = sc + (jl[i] % 3) * S * kPitch;
+    float* dst = sc + (jl[i] % 3) * nc_max * kPitch;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int cc = col0[i] + g + 8 * h;
-      if (cc >= S) continue;
+      const int cc = col0[i] + g + 8 * h;     // local conv column
+      if (cc >= nc) continue;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int o = 8 * nt + 2 * q;
@@ -401,29 +459,33 @@ __device__ __forceinline__ void conv_tiles(
 
 }  // namespace f32
 
+template <bool kTiled>
 __global__ void __launch_bounds__(f32::kThreads, 1)
 stem_kernel_f32(const float* __restrict__ crops, const float* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ out,
-                int S, float m0, float m1, float m2) {
+                int S, int tiles, int nc_max, float m0, float m1, float m2) {
+  if (!kTiled) tiles = 1, nc_max = S;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rowlen = row_elems(S);
+  const int rowlen = row_elems(nc_max);
   float* su = reinterpret_cast<float*>(smem);                  // strip
   float* sw =                                                  // [kK][kWPitch]
-      reinterpret_cast<float*>(smem + f32::strip_bytes(S));
-  float* sc = sw + f32::kK * f32::kWPitch;       // [3][S][kPitch] conv ring
+      reinterpret_cast<float*>(smem + f32::strip_bytes(nc_max));
+  float* sc = sw + f32::kK * f32::kWPitch;  // [3][nc_max][kPitch] conv ring
   const int sp = S / 2;
   const int strips = (sp + kRows - 1) / kRows;
-  const int n = blockIdx.x / strips;
-  const int pr0 = (blockIdx.x % strips) * kRows;
+  const Tile tile = block_tile<kTiled>(S, tiles);
+  const int n = blockIdx.x / tiles / strips;
+  const int pr0 = (blockIdx.x / tiles % strips) * kRows;
   const float* img = crops + static_cast<long long>(n) * S * S * 3;
   const float mean[3] = {m0, m1, m2};
   const int tid = threadIdx.x;
 
   const int ur0 = 4 * pr0 - 5;                 // first upscaled row
+  const int uc0 = 2 * tile.c0 - 3;             // first upscaled column
 #pragma unroll 4
   for (int i = tid; i < kURows * rowlen; i += f32::kThreads) {
     const int row = i / rowlen, e = i % rowlen;
-    su[i] = upscaled_f32(img, S, ur0 + row, e / 3 - 3, e % 3, mean[e % 3]);
+    su[i] = upscaled_f32(img, S, ur0 + row, uc0 + e / 3, e % 3, mean[e % 3]);
   }
   for (int i = tid; i < f32::kK * kOut / 4; i += f32::kThreads) {
     const int k = i / (kOut / 4), o4 = i % (kOut / 4);
@@ -436,7 +498,8 @@ stem_kernel_f32(const float* __restrict__ crops, const float* __restrict__ w,
 
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, q = lane % 4;
-  const int tpr = (S + 15) / 16;               // m16 tiles per conv row
+  const int nc = tile.nc;
+  const int tpr = (nc + 15) / 16;              // m16 tiles per conv row
 
   // group 0: local conv row 0; group gi >= 1: rows 2gi - 1 and 2gi, then
   // pooled row pr0 + gi - 1 from rows 2gi - 2 .. 2gi.
@@ -445,26 +508,28 @@ stem_kernel_f32(const float* __restrict__ crops, const float* __restrict__ w,
     const int ntiles = (gi == 0 ? 1 : 2) * tpr;
     for (int t0 = warp; t0 < ntiles; t0 += 2 * f32::kWarps) {
       if (t0 + f32::kWarps < ntiles)
-        f32::conv_tiles<2>(su, sw, sc, bias, S, rowlen, pr0, first, tpr, t0,
-                           g, q);
+        f32::conv_tiles<2>(su, sw, sc, bias, S, nc, nc_max, rowlen, pr0,
+                           first, tpr, t0, g, q);
       else
-        f32::conv_tiles<1>(su, sw, sc, bias, S, rowlen, pr0, first, tpr, t0,
-                           g, q);
+        f32::conv_tiles<1>(su, sw, sc, bias, S, nc, nc_max, rowlen, pr0,
+                           first, tpr, t0, g, q);
     }
     __syncthreads();
     const int pr = pr0 + gi - 1;
     if (gi > 0 && pr < sp) {
       // 3x3/2 max pool of local conv rows 2gi - 2 .. 2gi, 4 channels a thread
-      for (int i = tid; i < sp * (kOut / 4); i += f32::kThreads) {
-        const int c4 = i % (kOut / 4), pc = i / (kOut / 4);
+      for (int i = tid; i < (tile.q1 - tile.q0) * (kOut / 4);
+           i += f32::kThreads) {
+        const int c4 = i % (kOut / 4), pc = tile.q0 + i / (kOut / 4);
         float4 best = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int dj = 0; dj < 3; ++dj) {
-          const float* row = sc + ((2 * gi - 2 + dj) % 3) * S * f32::kPitch;
+          const float* row =
+              sc + ((2 * gi - 2 + dj) % 3) * nc_max * f32::kPitch;
           for (int dc = -1; dc <= 1; ++dc) {
-            const int cc = 2 * pc + dc;
+            const int cc = 2 * pc + dc;          // conv column
             if (cc < 0) continue;
             const float4 v = *reinterpret_cast<const float4*>(
-                row + cc * f32::kPitch + 4 * c4);
+                row + (cc - tile.c0) * f32::kPitch + 4 * c4);
             best.x = fmaxf(best.x, v.x);
             best.y = fmaxf(best.y, v.y);
             best.z = fmaxf(best.z, v.z);
@@ -479,36 +544,49 @@ stem_kernel_f32(const float* __restrict__ crops, const float* __restrict__ w,
   }
 }
 
+template <typename T>
+using StemKernel = void (*)(const float*, const T*, const float*, T*, int, int,
+                            int, float, float, float);
+
+// Launches of one form on N crops of S x S (even S >= 8): the grid is N x
+// row strips x column tiles, crop outermost.
+template <typename T>
+int launch(StemKernel<T> one, StemKernel<T> tiled, int threads, int q_max,
+           int (*smem_of)(int), const void* crops, const void* w,
+           const void* bias, void* out, int N, int S, float m0, float m1,
+           float m2, void* stream) {
+  if (S < 8 || S % 2 || N < 1) return cudaErrorInvalidValue;
+  const Tiles tiles(S, q_max);
+  const StemKernel<T> kernel = tiles.count == 1 ? one : tiled;
+  const long long blocks =
+      static_cast<long long>(N) * ((S / 2 + kRows - 1) / kRows) * tiles.count;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = smem_of(tiles.nc_max);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<int>(blocks), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(crops), static_cast<const T*>(w),
+      static_cast<const float*>(bias), static_cast<T*>(out), S, tiles.count,
+      tiles.nc_max, m0, m1, m2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int mimamo_stem_f32(const void* crops, const void* w,
                                const void* bias, void* out, int N, int S,
                                float m0, float m1, float m2, void* stream) {
-  if (S > f32::kMaxCrop || S < 8 || S % 2) return cudaErrorInvalidValue;
-  const int smem = f32::smem_bytes(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int strips = (S / 2 + kRows - 1) / kRows;
-  stem_kernel_f32<<<N * strips, f32::kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(crops), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), S, m0, m1,
-      m2);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(stem_kernel_f32<false>, stem_kernel_f32<true>,
+                      f32::kThreads, f32::kTileQ, f32::smem_bytes, crops, w,
+                      bias, out, N, S, m0, m1, m2, stream);
 }
 
 extern "C" int mimamo_stem(const void* crops, const void* w, const void* bias,
                            void* out, int N, int S, float m0, float m1,
                            float m2, void* stream) {
-  const int smem = smem_bytes(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int strips = (S / 2 + kRows - 1) / kRows;
-  stem_kernel<<<N * strips, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(crops), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), S, m0,
-      m1, m2);
-  return static_cast<int>(cudaGetLastError());
+  return launch<__nv_bfloat16>(stem_kernel<false>, stem_kernel<true>,
+                               kThreads, kTileQ, smem_bytes, crops, w, bias,
+                               out, N, S, m0, m1, m2, stream);
 }

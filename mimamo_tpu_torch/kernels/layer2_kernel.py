@@ -11,8 +11,9 @@ relu run in fp32; the residual stream is stored in the activation dtype.
 
 The kernel is ``csrc/layer2.cu``: one launch per bottleneck block (4 per
 call), each CTA computing conv1 -> conv2 -> conv3 (+ block 0's projection)
-for 4 output rows of a frame with wgmma and TMA, y1 and y2 kept in shared
-memory. It takes output widths W <= 31.
+for 4 output rows and a tile of at most 30 output columns of a frame with
+wgmma and TMA, y1 and y2 kept in shared memory. It takes any output size:
+a frame wider than 30 columns is cut into column tiles.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from ._build import I, P, Kernel
 
 KERNEL = Kernel("mimamo_layer2_block", [P] * 10 + [I, I, I, I, P])
 BLOCKS, C_IN, WIDTH, OUT_W = 4, 256, 128, 512
-MAX_OUT_W = 31          # the kernel's padded grid has row stride 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +114,8 @@ def layer2_fused(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
     ``x.dtype`` (NHWC).
 
     ``blocks``: :func:`pack_layer2_params` output. A CUDA tensor goes
-    through the kernel (bf16 only, W <= 31, one launch per block); a CPU
-    tensor through :func:`layer2_plain`.
+    through the kernel (bf16 only, one launch per block); a CPU tensor
+    through :func:`layer2_plain`.
     """
     _check(x, blocks)
     if x.device.type == "cpu":
@@ -126,9 +126,6 @@ def layer2_fused(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (NHWC)")
     n, h, w = x.shape[0], x.shape[1] // 2, x.shape[2] // 2
-    if w > MAX_OUT_W:
-        raise ValueError(f"the layer2 kernel takes output widths up to "
-                         f"{MAX_OUT_W}, got {w}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     for blk in blocks:
         ds = blk.get("downsample")

@@ -8,17 +8,18 @@ the weights. The upscale and mean subtraction run in fp32 and round to the
 conv dtype where conv1 casts; the conv accumulates in fp32. The kernels are
 in ``csrc/stem.cu``, one per conv dtype (the TPU kernel's static ``dtype``
 argument), both on the tensor cores: bf16 (``KERNEL``) and fp32
-(``KERNEL_F32``, crops up to ``MAX_CROP_F32``), whose conv1 splits each
-fp32 operand into two TF32 parts and sums three products (3xTF32): not
-bit-equal to fp32 FMA sums, but within 1e-5 of the largest output. Both
-read the NHWC crops directly, so the port needs no
-``prepare_stem_input``.
+(``KERNEL_F32``), whose conv1 splits each fp32 operand into two TF32 parts
+and sums three products (3xTF32): not bit-equal to fp32 FMA sums, but
+within 1e-5 of the largest output. Both read the NHWC crops directly, so
+the port needs no ``prepare_stem_input``. Neither caps the crop size: a
+crop wider than one tile of pooled columns (96 in bf16, 64 in fp32) is cut
+into column tiles, so a block's shared memory does not grow with S.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,8 +30,25 @@ from ._build import I, P, Kernel
 _ARGS = [P, P, P, P, I, I, ctypes.c_float, ctypes.c_float, ctypes.c_float, P]
 KERNEL = Kernel("mimamo_stem", _ARGS)              # bf16
 KERNEL_F32 = Kernel("mimamo_stem_f32", _ARGS)      # fp32
-MAX_CROP = 192          # the kernel's shared-memory strip grows with S
-MAX_CROP_F32 = 128      # fp32 doubles the strip, the weights and the ring
+# pooled columns of one column tile (kTileQ of each form in csrc/stem.cu):
+# a crop of up to twice as many columns is one tile
+TILE_Q, TILE_Q_F32 = 96, 64
+
+
+def tile_plan(s: int, dtype: torch.dtype) -> List[Tuple[int, int, int, int]]:
+    """The column tiles the kernel of ``dtype`` cuts an s x s crop into
+    (``Tiles`` and ``block_tile`` of csrc/stem.cu): the fewest tiles of at
+    most TILE_Q pooled columns, evened out, each as (q0, q1, c0, nc):
+    pooled columns q0 .. q1-1 from conv columns c0 .. c0 + nc - 1."""
+    sp = s // 2
+    q_max = TILE_Q_F32 if dtype == torch.float32 else TILE_Q
+    count = -(-sp // q_max)
+    plan = []
+    for t in range(count):
+        q0, q1 = t * sp // count, (t + 1) * sp // count
+        c0 = 0 if q0 == 0 else 2 * q0 - 1
+        plan.append((q0, q1, c0, 2 * q1 - c0))
+    return plan
 
 
 def prepare_stem_weights(conv1_weight: torch.Tensor, conv1_bias: torch.Tensor,
@@ -63,19 +81,17 @@ def stem_plain(crops: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
 def stem_fused(crops: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
                mean_rgb: Sequence[float]) -> torch.Tensor:
     """[N, S, S, 3] float32 RGB crops (0..255) -> [N, S/2, S/2, 64] stem
-    features in ``w2.dtype`` (NHWC), for even S >= 8.
+    features in ``w2.dtype`` (NHWC), for any even S >= 8.
 
     ``w2``/``bias`` come from :func:`prepare_stem_weights`. A CUDA tensor
-    goes through the kernel of ``w2.dtype`` (bf16, or fp32 for
-    S <= ``MAX_CROP_F32``); a CPU tensor through :func:`stem_plain`.
+    goes through the kernel of ``w2.dtype`` (bf16 or fp32); a CPU tensor
+    through :func:`stem_plain`.
     """
     if (crops.dim() != 4 or crops.shape[1] != crops.shape[2]
             or crops.shape[3] != 3 or crops.shape[1] % 2
-            or not 8 <= crops.shape[1] <= MAX_CROP
-            or crops.dtype != torch.float32):
+            or crops.shape[1] < 8 or crops.dtype != torch.float32):
         raise ValueError(f"crops must be [N, S, S, 3] float32 with even "
-                         f"8 <= S <= {MAX_CROP}, got {tuple(crops.shape)} "
-                         f"{crops.dtype}")
+                         f"S >= 8, got {tuple(crops.shape)} {crops.dtype}")
     if tuple(w2.shape) != (147, 64) or tuple(bias.shape) != (64,) \
             or bias.dtype != torch.float32:
         raise ValueError(f"expected [147, 64] weights and [64] float32 "
@@ -90,9 +106,6 @@ def stem_fused(crops: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     if crops.device.type != "cuda" or kernel is None:
         raise ValueError(f"the stem kernels take bf16 or fp32 weights on a "
                          f"CUDA device, got {w2.dtype} on {crops.device}")
-    if kernel is KERNEL_F32 and crops.shape[1] > MAX_CROP_F32:
-        raise ValueError(f"the fp32 stem kernel takes crops up to "
-                         f"{MAX_CROP_F32}, got {crops.shape[1]}")
     if not (crops.is_contiguous() and w2.is_contiguous()
             and bias.is_contiguous()):
         raise ValueError("crops, weights and bias must be contiguous")
