@@ -101,7 +101,14 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      tile), with times and bounds as records ``<kernel>@<crop>`` in the
      ``kernels`` line; the stem kernels at uneven (202) and three (264,
      fp32) column tiles;
- 14. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
+ 14. ``convert``: ``python -m mimamo_tpu_torch.cli convert --verify`` on
+     the card of a seeded ResNet-50 ``.pth`` under the FER+ ``dag`` names
+     (with MatConvNet meta) and a seeded two-stream ``.pth`` (the source
+     forwarded by ``torch_ref`` on the CPU against the converted model on
+     the card), then ``cli predict --crops --ckpt`` on the card against
+     ``--cpu`` and the checkpoint's embeddings card against CPU, at the
+     ``fp32`` phase's gates, with the launches of the card's predict;
+ 15. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
      gate's bound under ``tol_max_rel`` or ``tol_abs``, the launch counts of
      each path) and, last, the device line.
 
@@ -1981,6 +1988,122 @@ def check_crops(state: dict, line: str) -> tuple:
     return recs, report
 
 
+def _dag_sources(cfg: MimamoConfig) -> tuple:
+    """Seeded reference-shaped sources: a ResNet-50 ``state_dict`` under
+    the FER+ MatConvNet ``dag`` names (1x1-conv classifier, BN counters)
+    and a two-stream one in the canonical schema, as numpy; conv and
+    linear weights at 1 / sqrt(fan_in), BN near identity."""
+    from mimamo_tpu_torch.backbone import ResNet50, ferplus_dag_rename
+    from mimamo_tpu_torch.temporal import TwoStreamRNN
+    rng = np.random.default_rng(SEED + 40)
+
+    def values(module):
+        with torch.device("meta"):
+            shapes = {k: tuple(v.shape)
+                      for k, v in module().state_dict().items()}
+        out = {}
+        for k, shape in shapes.items():
+            if k.endswith("num_batches_tracked"):
+                out[k] = np.zeros((), np.int64)
+            elif k.endswith("running_var"):
+                out[k] = (0.5 + rng.random(shape)).astype(np.float32)
+            elif len(shape) == 1:
+                scale = k[:-len("weight")] + "running_var" in shapes
+                out[k] = (float(scale) + 0.1 * rng.standard_normal(
+                    shape)).astype(np.float32)
+            else:
+                out[k] = (rng.standard_normal(shape) / np.sqrt(
+                    np.prod(shape[1:]))).astype(np.float32)
+        return out
+
+    inv = {v: k for k, v in ferplus_dag_rename().items()}
+    dag = {}
+    for k, v in values(lambda: ResNet50(cfg.backbone)).items():
+        if k.endswith("num_batches_tracked"):
+            mod = inv[k.replace("num_batches_tracked", "running_mean")]
+            dag[mod.replace("running_mean", "num_batches_tracked")] = v
+        else:
+            dag[inv[k]] = v.reshape(v.shape + (1, 1)) if k == "fc.weight" \
+                else v
+    temporal = values(lambda: TwoStreamRNN(
+        cfg.temporal, cfg.num_phase, cfg.phase.phase_size,
+        cfg.backbone.feature_dim))
+    return dag, temporal
+
+
+def check_convert(line: str) -> dict:
+    """``cli convert --verify`` on the card of a seeded ``dag``-named
+    backbone ``.pth`` (with MatConvNet meta) and a two-stream ``.pth`` at
+    the default config, then ``cli predict --crops --ckpt`` of 16 frames
+    (clips of 8 at stride 4: one forward) on the card against ``--cpu``
+    and the checkpoint's embeddings card against CPU, at the ``fp32``
+    phase's gates. Returns the report with the launches of the card's
+    ``cli predict``."""
+    import contextlib
+    import io
+    from mimamo_tpu_torch import cli
+    cfg = MimamoConfig()
+    dag, temporal = _dag_sources(cfg)
+    report = {"card": line}
+    with tempfile.TemporaryDirectory() as tmp:
+        bb, tp = os.path.join(tmp, "bb.pth"), os.path.join(tmp, "ts.pth")
+        torch.save({"state_dict": {k: torch.from_numpy(np.array(v))
+                                   for k, v in dag.items()},
+                    "meta": {"mean": list(cfg.backbone.mean_rgb),
+                             "std": [1.0, 1.0, 1.0],
+                             "imageSize": [224, 224, 3],
+                             "imageOrder": "rgb"}}, bb)
+        torch.save({k: torch.from_numpy(np.array(v))
+                    for k, v in temporal.items()}, tp)
+        ckpt = os.path.join(tmp, "ckpt")
+        out, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["convert", "--backbone-pth", bb, "--temporal-pth",
+                           tp, "--out", ckpt, "--verify"] + CLI_FLAGS)
+        report["convert_wall_ms"] = (time.perf_counter() - t) * 1e3
+        if rc != 0:
+            raise AssertionError(f"cli convert returned {rc}")
+        report["convert"] = json.loads(out.getvalue().splitlines()[-1])
+        report["verify"] = json.loads(next(
+            x for x in err.getvalue().splitlines()
+            if x.startswith('{"verify"')))["verify"]
+        if sorted(report["verify"]) != ["backbone_embeddings",
+                                        "backbone_logits",
+                                        "temporal_outputs"]:
+            raise AssertionError(f"convert --verify: {report['verify']}")
+        crops = os.path.join(tmp, "crops.npy")
+        np.save(crops, np.random.default_rng(SEED + 41).integers(
+            0, 256, (16, S, S, 3), dtype=np.uint8))
+        argv = ["predict", "--crops", crops, "--ckpt", ckpt, "--clip-len",
+                "8", "--stride", "4"]
+        card_csv, cpu_csv = (os.path.join(tmp, f"{d}.csv")
+                             for d in ("card", "cpu"))
+        _, report["launches_cli_predict"] = counted(
+            lambda: run_cli(argv + ["--out", card_csv]),
+            expected_launches(1, fp32=True))
+        run_cli(argv + ["--out", cpu_csv, "--cpu"])
+        report["predict_card_vs_cpu_max_rel"] = max_rel(
+            read_csv(card_csv)[:, 1:], read_csv(cpu_csv)[:, 1:])
+        state = checkpoints.load(ckpt)["model"]
+        clip = torch.from_numpy(np.load(crops)[None]).float()
+        embs = []
+        for device in ("cuda", "cpu"):
+            model = Mimamo(cfg, device=device)
+            model.load_state_dict(state)
+            with torch.no_grad():
+                embs.append(model.embed_frames(clip.to(device)).cpu())
+            del model
+        report["emb_card_vs_cpu_max_rel"] = max_rel(*embs)
+    report["tol"] = [FP32_EMB_REL_TOL, FP32_OUT_REL_TOL]
+    print(json.dumps({"convert_phase": report}), flush=True)
+    if not (report["emb_card_vs_cpu_max_rel"] <= FP32_EMB_REL_TOL
+            and report["predict_card_vs_cpu_max_rel"] <= FP32_OUT_REL_TOL):
+        raise AssertionError("convert: the converted checkpoint's card and "
+                             "CPU forwards disagree beyond tolerance")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2109,10 +2232,17 @@ def main() -> int:
         rec["launches_serve_feed"] = serve_launches[rec["name"]]
         rec["launches_cli_predict"] = cli_launches[rec["name"]]
 
-    # -- every crop size ---------------------------------------------------------
+    # -- every crop size, and the reference's weights ---------------------------
     t = time.perf_counter()
     crop_recs, _ = check_crops(state, line)
     print(json.dumps({"crops_s": time.perf_counter() - t}), flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    convert = check_convert(line)
+    print(json.dumps({"convert_s": time.perf_counter() - t}), flush=True)
+    for rec in recs:
+        rec["launches_convert_cli_predict"] = convert[
+            "launches_cli_predict"][rec["name"]]
     recs += crop_recs
     print(json.dumps({"smoke_s": time.perf_counter() - t_start}), flush=True)
 

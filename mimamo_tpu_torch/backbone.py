@@ -21,13 +21,19 @@ converted FER+ checkpoints expect. Inference runs the BN-folded form,
 Fine-tuning runs the unfolded :meth:`ResNet50.forward` with training-mode
 BatchNorm (``batchnorm.BatchNorm2d``) on ``preprocess.for_backbone`` input,
 as plain autograd: the kernels are inference-only.
+
+The reference's weights come in through :func:`load_torch_state_dict`
+(torchvision names, or the FER+ MatConvNet ``dag`` names by
+:func:`resolve_torch_names`), as ``cli convert`` reads them.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Tuple
+import functools
+from typing import Any, Dict, FrozenSet, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -241,3 +247,128 @@ class FoldedResNet50:
         emb = x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)
         emb = emb.to(torch.float32)
         return emb, F.linear(emb, *self.fc)
+
+
+# -- the reference's weight schema ---------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def canonical_keys() -> FrozenSet[str]:
+    """The canonical torchvision names of a ResNet-50 ``state_dict``, as
+    :class:`ResNet50` holds them (``num_batches_tracked`` left out): the key
+    set that :func:`load_torch_state_dict` maps onto and checks against."""
+    with torch.device("meta"):
+        model = ResNet50(BackboneSpec())
+    return frozenset(k for k in model.state_dict()
+                     if not k.endswith("num_batches_tracked"))
+
+
+def ferplus_dag_rename() -> Dict[str, str]:
+    """``resnet50_ferplus_dag`` name -> canonical torchvision name, all 267
+    parameter tensors.
+
+    The FER+ checkpoint is a MatConvNet conversion whose module names follow
+    the Caffe scheme: ``conv1_7x7_s2`` (+ ``_bn``), per bottleneck
+    ``conv{stage+2}_{block+1}_1x1_reduce / _3x3 / _1x1_increase`` with
+    ``_bn`` variants, ``_1x1_proj`` (+ ``_bn``) on each stage's first
+    block, and a 1x1-conv ``classifier``. Its convs have no bias (the
+    biases live in the BN layers); the classifier's [C, 2048, 1, 1] kernel
+    is squeezed by :func:`normalize_dag_state_dict`, not here.
+    """
+    bn_parts = ("weight", "bias", "running_mean", "running_var")
+    m = {"conv1_7x7_s2.weight": "conv1.weight",
+         "classifier.weight": "fc.weight",
+         "classifier.bias": "fc.bias"}
+    for p in bn_parts:
+        m[f"conv1_7x7_s2_bn.{p}"] = f"bn1.{p}"
+    for stage, blocks in enumerate(STAGE_SIZES):
+        for block in range(blocks):
+            dp = f"conv{stage + 2}_{block + 1}"       # Caffe stage names
+            cp = f"layer{stage + 1}.{block}"
+            for suffix, i in (("1x1_reduce", 1), ("3x3", 2),
+                              ("1x1_increase", 3)):
+                m[f"{dp}_{suffix}.weight"] = f"{cp}.conv{i}.weight"
+                for p in bn_parts:
+                    m[f"{dp}_{suffix}_bn.{p}"] = f"{cp}.bn{i}.{p}"
+            if block == 0:   # projection shortcut on the first block only
+                m[f"{dp}_1x1_proj.weight"] = f"{cp}.downsample.0.weight"
+                for p in bn_parts:
+                    m[f"{dp}_1x1_proj_bn.{p}"] = f"{cp}.downsample.1.{p}"
+    return m
+
+
+def looks_like_ferplus_dag(state_dict: Dict[str, Any]) -> bool:
+    """Does this ``state_dict`` use the MatConvNet ``dag`` names?"""
+    return "conv1_7x7_s2.weight" in state_dict
+
+
+def normalize_dag_state_dict(state_dict: Dict[str, Any]
+                             ) -> Dict[str, np.ndarray]:
+    """``dag``-named ``state_dict`` -> canonical torchvision names, as numpy
+    arrays: :func:`ferplus_dag_rename`, and the 1x1-conv classifier kernel
+    squeezed to [C, 2048] (any other kernel size raises ``ValueError``).
+    ``num_batches_tracked`` is dropped; any other unknown key passes
+    through, for :func:`load_torch_state_dict`'s strict mode to catch."""
+    rename = ferplus_dag_rename()
+    out = {}
+    for k, v in state_dict.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        nk = rename.get(k, k)
+        arr = np.asarray(v)
+        if nk == "fc.weight" and arr.ndim == 4:
+            if arr.shape[2:] != (1, 1):
+                raise ValueError(f"classifier.weight: expected a 1x1 conv "
+                                 f"kernel, got shape {arr.shape}")
+            arr = arr.reshape(arr.shape[0], arr.shape[1])
+        out[nk] = arr
+    return out
+
+
+def resolve_torch_names(state_dict: Dict[str, Any],
+                        rename: Optional[Dict[str, str]] = None):
+    """The torchvision-named view of a source ``state_dict``, and how it was
+    made: ``(state_dict, how)``, ``how`` in ``("rename", "dag", "as-is")``.
+    An explicit ``rename`` (source name -> canonical name) wins over the
+    ``dag`` auto-detect. ``cli convert`` imports and ``--verify`` forwards
+    this one view, so the check sees exactly the converted tensors."""
+    if rename is not None:
+        return ({rename.get(k, k): v for k, v in state_dict.items()},
+                "rename")
+    if looks_like_ferplus_dag(state_dict):
+        return normalize_dag_state_dict(state_dict), "dag"
+    return state_dict, "as-is"
+
+
+def load_torch_state_dict(state_dict: Dict[str, Any],
+                          rename: Optional[Dict[str, str]] = None,
+                          strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A torch ResNet-50 ``state_dict`` (numpy arrays or CPU tensors,
+    torchvision names after ``rename``) -> :class:`ResNet50` entries as
+    float32 tensors, BN running stats carried and ``num_batches_tracked``
+    0 for every BN layer whose running variance came in.
+
+    ``strict`` (the default) raises ``KeyError`` on a key that maps to no
+    :func:`canonical_keys` entry and on a canonical key the source lacks;
+    ``num_batches_tracked`` is skipped. Without it unknown keys are
+    skipped and the result may be partial (merge it over initialized
+    weights)."""
+    if rename:
+        state_dict = {rename.get(k, k): v for k, v in state_dict.items()}
+    keys = canonical_keys()
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in state_dict.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k not in keys:
+            if strict:
+                raise KeyError(f"unmapped torch key: {k}")
+            continue
+        out[k] = torch.from_numpy(np.array(v, dtype=np.float32))
+        if k.endswith(".running_var"):
+            out[k[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0)
+    if strict:
+        missing = keys - set(out)
+        if missing:
+            raise KeyError(f"missing torch keys: {sorted(missing)[:5]} ...")
+    return out

@@ -15,8 +15,8 @@ Counterpart of ``mimamo_tpu/checkpoints.py``:
   * :func:`load_temporal_state_dict`: a reference two-stream
     ``state_dict`` checked against the canonical temporal schema. The
     port's parameters already carry those names, so this is a rename
-    (``prefix_map``) and a check; ``Mimamo.temporal.load_state_dict(...,
-    strict=False)`` merges the result over initialized weights.
+    (``prefix_map``) and a check; :func:`merge_temporal` checks the result
+    against the config's shapes and merges it over initialized weights.
 """
 
 from __future__ import annotations
@@ -217,6 +217,19 @@ def micro_fc_input_shape(spec, phase_size: int) -> Tuple[int, int, int]:
     return side, side, spec.micro_cnn_features[-1]
 
 
+def apply_prefix_map(state_dict: Dict[str, Any],
+                     prefix_map: Optional[Dict[str, str]]) -> Dict[str, Any]:
+    """``state_dict`` with each key that starts with a source prefix of
+    ``prefix_map`` renamed to start with its canonical prefix, the values
+    as they are."""
+    sd = dict(state_dict)
+    for src, dst in (prefix_map or {}).items():
+        for k in list(sd):
+            if k.startswith(src):
+                sd[dst + k[len(src):]] = sd.pop(k)
+    return sd
+
+
 def load_temporal_state_dict(state_dict: Dict[str, Any],
                              prefix_map: Optional[Dict[str, str]] = None,
                              spec=None,
@@ -240,12 +253,7 @@ def load_temporal_state_dict(state_dict: Dict[str, Any],
     that map to nothing (a foreign schema without ``prefix_map`` would
     otherwise load nothing and leave random weights in place).
     """
-    sd = dict(state_dict)
-    if prefix_map:
-        for src, dst in prefix_map.items():
-            for k in list(sd):
-                if k.startswith(src):
-                    sd[dst + k[len(src):]] = sd.pop(k)
+    sd = apply_prefix_map(state_dict, prefix_map)
     out: Dict[str, torch.Tensor] = {}
     unconsumed = []
     for k, v in sd.items():
@@ -270,3 +278,33 @@ def load_temporal_state_dict(state_dict: Dict[str, Any],
             f"unmapped state_dict keys (pass prefix_map to translate, or "
             f"strict=False to skip): {sorted(unconsumed)}")
     return out
+
+
+def merge_temporal(base: Dict[str, torch.Tensor],
+                   overlay: Dict[str, torch.Tensor], strict: bool = True
+                   ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """``base`` (the config's ``TwoStreamRNN`` ``state_dict``) with the
+    entries of ``overlay`` (:func:`load_temporal_state_dict`) put over it;
+    returns (merged, dropped).
+
+    An overlay entry the config has no tensor for (a micro conv past the
+    config's depth) is dropped and counted. One whose shape differs from
+    the config's is an error under ``strict`` (``ValueError`` naming every
+    such tensor); without it it is dropped and counted too.
+    """
+    merged = dict(base)
+    dropped, mismatches = 0, []
+    for k, v in overlay.items():
+        if k not in base:
+            dropped += 1
+        elif tuple(v.shape) != tuple(base[k].shape):
+            mismatches.append(f"{k}: checkpoint {tuple(v.shape)} vs config "
+                              f"{tuple(base[k].shape)}")
+            dropped += 1
+        else:
+            merged[k] = v.to(base[k].dtype)
+    if mismatches and strict:
+        raise ValueError("tensor shapes incompatible with this config (pass "
+                         "--no-strict to drop them): "
+                         + "; ".join(mismatches))
+    return merged, dropped

@@ -12,11 +12,15 @@ output lines::
     python -m mimamo_tpu_torch.cli predict-corpus --videos 'corpus/*.mp4' \\
         --out-dir out/
     python -m mimamo_tpu_torch.cli serve --uint8-streams
+    python -m mimamo_tpu_torch.cli convert \\
+        --backbone-pth resnet50_ferplus_dag.pth --temporal-pth model.pth \\
+        --out ckpts/ --verify
 
 Every subcommand runs on the card, or on the CPU with ``--cpu``; without a
 card and without ``--cpu`` it raises. ``--ckpt`` names a port checkpoint
-directory (``checkpoints.save``, as ``train`` writes it), not an orbax
-one: convert JAX weights with ``weights.from_jax_variables``.
+directory (``checkpoints.save``, as ``train`` and ``convert`` write it),
+not an orbax one: convert the reference's ``.pth`` files with ``convert``,
+JAX weights with ``weights.from_jax_variables``.
 
 What the JAX CLI has and this one does not:
 
@@ -30,7 +34,7 @@ What the JAX CLI has and this one does not:
   * multi-process and data-parallel flags (``--data-parallel``,
     ``--coordinator``, ``--num-processes``, ``--process-id``; A12), and
     ``train --tensorboard`` / ``--debug-nans``: not registered yet;
-  * the ``convert`` and ``bench`` subcommands: not ported yet.
+  * the ``bench`` subcommand: registered, it exits naming ROADMAP.md A15.
 """
 
 from __future__ import annotations
@@ -280,6 +284,184 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _json_map(path: Optional[str]) -> Optional[dict]:
+    if not path:
+        return None
+    with open(path) as f:
+        m = json.load(f)
+    if not isinstance(m, dict) or not all(isinstance(v, str)
+                                          for v in m.values()):
+        raise SystemExit(f"{path}: expected a flat {{source: canonical}} "
+                         f"JSON object")
+    return m
+
+
+def _backbone_meta(config: MimamoConfig, meta: Optional[dict], report: dict
+                   ) -> MimamoConfig:
+    """``config`` with a ``.pth``'s preprocessing meta (``mean``,
+    ``channel_order``) folded in, recorded in ``report``; warns on a std
+    other than 1 and notes an imageSize other than the backbone's."""
+    import dataclasses
+    if not meta:
+        return config
+    bspec = config.backbone
+    if "mean" in meta:
+        bspec = dataclasses.replace(bspec, mean_rgb=tuple(meta["mean"]))
+    if "channel_order" in meta:
+        bspec = dataclasses.replace(bspec,
+                                    channel_order=meta["channel_order"])
+    report["backbone_meta"] = {"mean_rgb": list(bspec.mean_rgb),
+                               "channel_order": bspec.channel_order}
+    if meta.get("std") and any(abs(s - 1.0) > 1e-6 for s in meta["std"]):
+        print(f"WARNING: checkpoint meta['std'] = {meta['std']} != 1 — "
+              f"this importer assumes mean-subtraction-only preprocessing; "
+              f"verify the source model", file=sys.stderr)
+    if meta.get("image_size") and meta["image_size"] != bspec.input_size:
+        print(f"note: checkpoint meta imageSize {meta['image_size']} != "
+              f"--backbone-size {bspec.input_size}; the ResNet is fully "
+              f"convolutional so weights load either way, but reference "
+              f"parity uses the meta size", file=sys.stderr)
+    return dataclasses.replace(config, backbone=bspec)
+
+
+def _verify(args, config: MimamoConfig, state: dict, backbone_sd,
+            device) -> dict:
+    """Forward the SOURCE tensors through ``torch_ref`` on the CPU and the
+    converted weights on ``device`` on the same inputs; raises SystemExit
+    when an output differs by more than ``--verify-tol`` of its scale.
+    Returns the report: ``max_abs_diff``, ``scale``, ``rel`` per output."""
+    import dataclasses
+    import torch
+    from . import checkpoints, torch_ref
+    from .backbone import ResNet50, resolve_torch_names
+    from .temporal import TwoStreamRNN
+    rng = np.random.default_rng(0)
+    tol, report = args.verify_tol, {}
+
+    def check(name, got, want):
+        scale = float(np.abs(want).max()) + 1e-12
+        diff = float(np.abs(got.detach().cpu().numpy() - want).max())
+        report[name] = {"max_abs_diff": diff, "scale": round(scale, 6),
+                        "rel": diff / scale}
+        if not diff <= tol * scale:
+            raise SystemExit(
+                f"convert --verify FAILED on {name}: max |delta| {diff:.3e} "
+                f"vs output scale {scale:.3e} (> {tol:.1e} relative). The "
+                f"converted model does NOT match the source .pth forward; "
+                f"no checkpoint was written.")
+
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in state.items()
+                if k.startswith(prefix)}
+
+    with torch.no_grad():
+        if args.backbone_pth:
+            tv_sd, _ = resolve_torch_names(backbone_sd,
+                                           _json_map(args.backbone_rename))
+            s = config.backbone.input_size
+            imgs = rng.uniform(-120.0, 120.0, (2, s, s, 3)).astype(
+                np.float32)
+            emb_t, log_t = torch_ref.backbone_forward(tv_sd, imgs)
+            # the unfolded forward, in fp32 whatever the compute dtype
+            net = ResNet50(dataclasses.replace(config.backbone,
+                                               dtype="float32"))
+            net.load_state_dict(part("backbone."))
+            net.to(device).eval()
+            emb, logits = net(torch.from_numpy(imgs).to(device))
+            check("backbone_embeddings", emb, emb_t)
+            check("backbone_logits", logits, log_t)
+        if args.temporal_pth:
+            spec, b, t = config.temporal, 2, 4
+            p = config.phase.phase_size
+            ph = rng.standard_normal(
+                (b, t - 1, config.num_phase, p, p)).astype(np.float32)
+            ft = rng.standard_normal(
+                (b, t, config.backbone.feature_dim)).astype(np.float32)
+            want = torch_ref.temporal_forward(checkpoints.apply_prefix_map(
+                checkpoints.load_pth(args.temporal_pth),
+                _json_map(args.temporal_prefix_map)), spec, ph, ft)
+            net = TwoStreamRNN(spec, config.num_phase, p,
+                               config.backbone.feature_dim)
+            net.load_state_dict(part("temporal."))
+            net.to(device).eval()
+            got, _ = net(torch.from_numpy(ph).to(device),
+                         torch.from_numpy(ft).to(device))
+            check("temporal_outputs", got, want)
+    return report
+
+
+def cmd_convert(args) -> int:
+    """The reference's ``.pth`` checkpoints -> one port checkpoint dir that
+    every ``--ckpt`` consumer accepts (plus ``backbone_meta.json`` when the
+    backbone ``.pth`` carries a mean or a channel order). Strict by
+    default: a tensor that maps nowhere is an error, not a silent random
+    init. ``--verify`` holds the converted weights against the source's
+    own forward and writes nothing when they disagree."""
+    from . import backbone, checkpoints, train, weights
+    from .runner import Mimamo
+    if not (args.backbone_pth or args.temporal_pth):
+        raise SystemExit("convert needs --backbone-pth and/or "
+                         "--temporal-pth")
+    config = _config(args)
+    device = _device(args)
+    strict = not args.no_strict
+    report: dict = {}
+    meta = backbone_sd = None
+    if args.backbone_pth:
+        # one deserialization for the tensors and the meta (a FER+ .pth is
+        # ~100 MB); the meta goes into the config before the model is built
+        backbone_sd, meta = checkpoints.load_pth_all(args.backbone_pth)
+        config = _backbone_meta(config, meta, report)
+    state = weights.init_variables(config, 0)
+    if args.backbone_pth:
+        sd, how = backbone.resolve_torch_names(
+            backbone_sd, _json_map(args.backbone_rename))
+        if how == "dag":
+            report["backbone_dag_rename"] = "auto"
+            print("detected resnet50_ferplus_dag naming; applied the "
+                  "built-in rename map", file=sys.stderr)
+        loaded = backbone.load_torch_state_dict(sd, strict=strict)
+        state.update({f"backbone.{k}": v for k, v in loaded.items()})
+        report["backbone_tensors"] = sum(
+            not k.endswith("num_batches_tracked") for k in loaded)
+    if args.temporal_pth:
+        overlay = checkpoints.load_temporal_state_dict(
+            checkpoints.load_pth(args.temporal_pth),
+            prefix_map=_json_map(args.temporal_prefix_map),
+            spec=config.temporal, phase_size=config.phase.phase_size,
+            strict=strict)
+        base = {k[len("temporal."):]: v for k, v in state.items()
+                if k.startswith("temporal.")}
+        try:
+            merged, dropped = checkpoints.merge_temporal(base, overlay,
+                                                         strict)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        state.update({f"temporal.{k}": v for k, v in merged.items()})
+        report["temporal_tensors"] = len(overlay) - dropped
+        if dropped:
+            report["temporal_dropped_for_config"] = dropped
+    # built before --verify: a model keeps TF32 off on the card, so the
+    # check's convs run in IEEE fp32 as the model's do
+    model = Mimamo(config, device=device)
+    model.load_state_dict(state)
+    if args.verify:
+        report["verify"] = _verify(args, config, state, backbone_sd, device)
+        print(json.dumps({"verify": report["verify"]}), file=sys.stderr)
+    out = checkpoints.save(args.out, train.create_train_state(model), step=0)
+    if meta and ("mean" in meta or "channel_order" in meta):
+        checkpoints.save_backbone_meta(args.out, config.backbone.mean_rgb,
+                                       config.backbone.channel_order)
+    print(json.dumps({**report, "out": out}))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    print("bench: the port's benchmark harness is not ported yet "
+          "(ROADMAP.md A15)", file=sys.stderr)
+    raise SystemExit(2)
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(prog="mimamo_tpu_torch",
                                  description=__doc__.splitlines()[0])
@@ -436,6 +618,37 @@ def main(argv: Optional[list] = None) -> int:
                         "exposed to untrusted clients")
     _add_common(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "convert",
+        help="reference .pth checkpoint(s) -> port checkpoint dir")
+    p.add_argument("--backbone-pth", default=None,
+                   help="ResNet-50 FER+ state_dict (.pth)")
+    p.add_argument("--backbone-rename", default=None,
+                   help="JSON {source: canonical-torchvision} name map "
+                        "for non-torchvision backbone schemas")
+    p.add_argument("--temporal-pth", default=None,
+                   help="two-stream (micro CNN + GRUs + heads) .pth")
+    p.add_argument("--temporal-prefix-map", default=None,
+                   help="JSON {source-prefix: canonical-prefix} map")
+    p.add_argument("--out", required=True, help="port checkpoint dir")
+    p.add_argument("--no-strict", action="store_true",
+                   help="skip unmapped tensors instead of erroring")
+    p.add_argument("--verify", action="store_true",
+                   help="forward the SOURCE .pth on the CPU (torch_ref) "
+                        "and the converted model on the device on a fixed "
+                        "input; print max |delta| per output and fail "
+                        "(before writing anything) if they disagree")
+    p.add_argument("--verify-tol", type=float, default=1e-3,
+                   help="relative tolerance for --verify (max |delta| "
+                        "over output scale)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("bench", help="benchmark harness: not ported yet "
+                                     "(ROADMAP.md A15)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

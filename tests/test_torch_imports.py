@@ -50,6 +50,7 @@ MODULES = (
     "mimamo_tpu_torch.corpus",
     "mimamo_tpu_torch.serve",
     "mimamo_tpu_torch.cli",
+    "mimamo_tpu_torch.torch_ref",
     "chip_smoke",
 )
 
