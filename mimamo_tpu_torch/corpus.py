@@ -1,14 +1,17 @@
 """Checkpointed corpus runner: batched inference over a video corpus.
 
 Counterpart of ``mimamo_tpu/corpus.py`` on one device. Clips come from
-the native C++ loader (decode, track, crop on C++ threads; ``make -C
-native``) or from the Python stream (windowed decode, stateful trackers,
+the native C++ loader (decode, track, crop on C++ threads; the library is
+built from ``native/loader.cpp`` at first use, ``io.native_loader``) or
+from the Python stream (windowed decode, stateful trackers,
 box crops by ``cv2.resize`` on the host, or similarity-aligned crops by
 ``Mimamo.crop_video_chunked`` on the device); fixed-size clip batches go
 through ``Mimamo.predict_clips``; each video's window outputs are
 overlap-averaged into a per-frame (valence, arousal) CSV and a row is
 appended to a JSONL manifest when its end-of-video sentinel has arrived
-and all its clips are back. A killed run resumes from the manifest:
+and all its clips are back. The summary of a run names its loader
+(``"loader"``), and why the native one did not run where it was asked for
+and does not build (``"native_error"``). A killed run resumes from the manifest:
 "incomplete" rows are retried, every other row is terminal.
 
 The JAX package's in-flight cap (``mimamo_tpu/dispatch.py``) existed for
@@ -112,14 +115,15 @@ class CorpusRunner:
         todo = [p for p in video_paths
                 if p not in done or done[p].get("status") == "incomplete"]
         skipped = len(video_paths) - len(todo)
+        loader = self._loader()
         if not todo:
             return {"videos": 0, "resumed_skipped": skipped, "frames": 0,
-                    "sec": 0.0, "fps": 0.0}
+                    "sec": 0.0, "fps": 0.0, **loader}
 
         cfg = self.model.config.clip
         t0 = time.time()
         stats = {"videos": 0, "failed": 0, "frames": 0,
-                 "resumed_skipped": skipped}
+                 "resumed_skipped": skipped, **loader}
         acc: Dict[int, dict] = {}        # vi -> window preds and starts
         # A video finalizes once its sentinel has arrived and all its
         # clips are back, so batches fill across video boundaries.
@@ -230,6 +234,18 @@ class CorpusRunner:
         stats["fps"] = (round(stats["frames"] / stats["sec"], 1)
                         if stats["sec"] else 0.0)
         return stats
+
+    def _loader(self) -> dict:
+        """The summary's loader entries: ``"native"`` where it was asked
+        for and the library builds, else ``"python"`` (with ``align``,
+        videos with a landmark sidecar take the Python stream either
+        way)."""
+        if not self.use_native:
+            return {"loader": "python"}
+        if native_loader.available():
+            return {"loader": "native"}
+        return {"loader": "python",
+                "native_error": native_loader.build_error()}
 
     def _clip_stream(self, paths: Sequence[str]):
         cfg = self.model.config.clip

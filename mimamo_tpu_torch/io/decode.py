@@ -7,9 +7,9 @@ device (``preprocess.crop_and_resize`` / ``warp_similarity``).
 
 Box sources, in priority order:
   1. precomputed boxes file (``<video>.boxes.npy`` [T, 4] or explicit path)
-  2. Haar cascade face detector (OpenCV's, or the native library's where
-     the OpenCV wheel lacks the API) with Lucas-Kanade tracking between
-     detections
+  2. Haar cascade face detector (OpenCV's, or, where the OpenCV wheel
+     lacks the API, the native library's, which ``io.native_loader``
+     builds at first use) with Lucas-Kanade tracking between detections
   3. centered square fallback covering the frame
 
 OpenCV is imported softly: without it, decoding, the trackers and image

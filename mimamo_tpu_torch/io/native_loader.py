@@ -1,8 +1,7 @@
 """ctypes bindings for the repo's native C++ library (native/loader.cpp).
 
 An own copy of ``mimamo_tpu/io/native_loader.py``: the ABI-checked load of
-``native/libmimamo_native.so`` (built by ``make -C native``; nothing here
-builds it), and over it
+the library, and over it
 
   * ``NativeCorpusLoader``: decode -> Haar face detect/track -> crop or
     eye alignment -> a bounded queue of uint8 clips, on C++ threads (the
@@ -13,25 +12,86 @@ builds it), and over it
     that the library links still has it, so ``io.decode`` falls back to
     it to keep detecting faces there.
 
-Without the library, ``available()`` is False and the loader raises.
+The library is built here, at first use (the first ``available()``, or
+the first loader or detector asked for): ``g++`` compiles
+``native/loader.cpp`` where it lies, with the flags and OpenCV libraries
+of ``native/Makefile``, into the gitignored ``mimamo_tpu_torch/_build/``
+under a name keyed by the source's hash, so an edited source rebuilds and
+an unchanged one loads at once. Nothing is written into ``native/``. A
+file lock serializes the build between processes (test workers, a daemon
+and its CLI). A library that ``make -C native`` built is the fallback when
+the build fails. Where neither loads (no ``g++``, no OpenCV headers),
+``available()`` is False, ``build_error()`` says why, and the loader and
+``decode_video_native`` raise with that text.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
+import subprocess
+import tempfile
 import threading
-from typing import Iterator, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
+_REPO = Path(__file__).resolve().parents[2]
+SOURCE = _REPO / "native" / "loader.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+# native/Makefile's CXXFLAGS, OPENCV_INC and OPENCV_LIBS
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
+OPENCV_INC = Path("/usr/include/opencv4")
+OPENCV_LIBS = ("-lopencv_core", "-lopencv_imgproc", "-lopencv_objdetect",
+               "-lopencv_video", "-lopencv_videoio")
+
+# built by `make -C native`, or on the loader's search path
 _LIB_PATHS = (
-    os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                 "libmimamo_native.so"),
+    str(_REPO / "native" / "libmimamo_native.so"),
     "libmimamo_native.so",
 )
 
 _ABI_VERSION = 9
+
+
+def build() -> Path:
+    """Compile ``native/loader.cpp`` into ``BUILD_DIR`` (if not yet built
+    from this source) and return the library's path; raises
+    ``RuntimeError`` saying what is missing or what the compiler said."""
+    if not SOURCE.exists():
+        raise RuntimeError(f"native source not found: {SOURCE}")
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the native library is compiled "
+                           "from native/loader.cpp at first use")
+    if not (OPENCV_INC / "opencv2" / "objdetect.hpp").exists():
+        raise RuntimeError(f"OpenCV 4 headers not found under "
+                           f"{OPENCV_INC}: the native library needs them")
+    h = hashlib.sha256(" ".join(CXX_FLAGS + OPENCV_LIBS).encode())
+    h.update(SOURCE.read_bytes())
+    lib = BUILD_DIR / f"libmimamo_native_{h.hexdigest()[:16]}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)        # released when closed
+        if lib.exists():
+            return lib
+        tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        try:
+            proc = subprocess.run(
+                [cxx, *CXX_FLAGS, f"-I{OPENCV_INC}", str(SOURCE), "-o",
+                 str(tmp / lib.name), *OPENCV_LIBS],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"g++ failed on {SOURCE.name}:\n"
+                                   f"{proc.stdout}")
+            os.replace(tmp / lib.name, lib)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return lib
 
 
 def _cascade_xml(name: str = "haarcascade_frontalface_default.xml") -> str:
@@ -39,57 +99,102 @@ def _cascade_xml(name: str = "haarcascade_frontalface_default.xml") -> str:
     return decode.find_cascade_xml(name) or ""
 
 
-def _load_lib() -> Optional[ctypes.CDLL]:
-    for p in _LIB_PATHS:
-        try:
-            lib = ctypes.CDLL(os.path.abspath(p) if os.path.sep in p else p)
-        except OSError:
-            continue
-        # A stale .so (built from older sources) must never be called
-        # with the current signatures: check the ABI stamp.
-        try:
-            lib.ml_abi_version.restype = ctypes.c_int
-            if lib.ml_abi_version() != _ABI_VERSION:
-                continue
-        except AttributeError:
-            continue
-        lib.ml_corpus_open.restype = ctypes.c_void_p
-        lib.ml_corpus_open.argtypes = [
-            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_char_p, ctypes.c_int]
-        lib.ml_corpus_next.restype = ctypes.c_int
-        lib.ml_corpus_next.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
-        lib.ml_corpus_frames_decoded.restype = ctypes.c_long
-        lib.ml_corpus_frames_decoded.argtypes = [ctypes.c_void_p]
-        lib.ml_corpus_close.restype = None
-        lib.ml_corpus_close.argtypes = [ctypes.c_void_p]
-        lib.ml_decode_video.restype = ctypes.c_int
-        lib.ml_decode_video.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float)]
-        lib.ml_detect.restype = ctypes.c_int
-        lib.ml_detect.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_char_p, ctypes.c_double,
-            ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-        return lib
-    return None
+def _bind(path: str) -> Optional[ctypes.CDLL]:
+    """The library at ``path`` with its signatures declared, or None when
+    it does not load or carries another ABI stamp (a stale .so built from
+    older sources must never be called with the current signatures)."""
+    try:
+        lib = ctypes.CDLL(os.path.abspath(path) if os.path.sep in path
+                          else path)
+    except OSError:
+        return None
+    try:
+        lib.ml_abi_version.restype = ctypes.c_int
+        if lib.ml_abi_version() != _ABI_VERSION:
+            return None
+    except AttributeError:
+        return None
+    lib.ml_corpus_open.restype = ctypes.c_void_p
+    lib.ml_corpus_open.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_int]
+    lib.ml_corpus_next.restype = ctypes.c_int
+    lib.ml_corpus_next.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    lib.ml_corpus_frames_decoded.restype = ctypes.c_long
+    lib.ml_corpus_frames_decoded.argtypes = [ctypes.c_void_p]
+    lib.ml_corpus_close.restype = None
+    lib.ml_corpus_close.argtypes = [ctypes.c_void_p]
+    lib.ml_decode_video.restype = ctypes.c_int
+    lib.ml_decode_video.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float)]
+    lib.ml_detect.restype = ctypes.c_int
+    lib.ml_detect.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+    return lib
 
 
-_LIB = _load_lib()
+class _Library:
+    """The native library of this process, built and loaded once, on the
+    first :meth:`get`: the built one first, then ``_LIB_PATHS``."""
+
+    def __init__(self, build: Callable[[], Path] = build):
+        self._build = build
+        self._lock = threading.Lock()
+        self._done = False
+        self.lib: Optional[ctypes.CDLL] = None
+        self.error: Optional[str] = None       # why ``lib`` is None
+
+    def get(self) -> Optional[ctypes.CDLL]:
+        with self._lock:
+            if not self._done:
+                paths, why = list(_LIB_PATHS), []
+                try:
+                    paths.insert(0, str(self._build()))
+                except RuntimeError as e:
+                    why.append(str(e))
+                for path in paths:
+                    self.lib = _bind(path)
+                    if self.lib is not None:
+                        break
+                else:
+                    self.error = "; ".join(
+                        why + [f"no library with ABI {_ABI_VERSION} "
+                               f"loads from {paths}"])
+                self._done = True
+            return self.lib
+
+
+_NATIVE = _Library()
 
 
 def available() -> bool:
-    return _LIB is not None
+    """Whether the library builds (or was built) and loads."""
+    return _NATIVE.get() is not None
+
+
+def build_error() -> Optional[str]:
+    """Why the library is not available, or None when it is."""
+    _NATIVE.get()
+    return _NATIVE.error
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _NATIVE.get()
+    if lib is None:
+        raise RuntimeError(f"native library not available: {_NATIVE.error}")
+    return lib
 
 
 class _NativeCascade:
@@ -112,7 +217,7 @@ class _NativeCascade:
             raise ValueError(f"expected a grayscale image, got shape "
                              f"{gray.shape}")
         out = np.empty((self._MAX, 4), np.float32)
-        n = _LIB.ml_detect(
+        n = _lib().ml_detect(
             gray.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             gray.shape[0], gray.shape[1], gray.shape[1], self._xml,
             float(scale), int(neighbors), int(min_size),
@@ -133,7 +238,7 @@ class _NativeCascade:
 def cascade(xml_path: str):
     """A ``detectMultiScale``-capable detector backed by the native
     library, or None when the library is unbuilt / the XML unloadable."""
-    if _LIB is None or not xml_path:
+    if not xml_path or not available():
         return None
     det = _NativeCascade(xml_path)
     return det if det.ok() else None
@@ -149,16 +254,15 @@ class NativeCorpusLoader:
                  crop: int, queue_cap: int = 16, n_threads: int = 4,
                  detect_every: int = 8, track: str = "lk",
                  align: bool = False):
-        if _LIB is None:
-            raise RuntimeError(
-                "native loader not built; run `make -C native`")
+        lib = _lib()
         if track not in ("lk", "hold"):
             raise ValueError(f"track must be 'lk' or 'hold', got "
                              f"{track!r}")
         self.clip_len, self.crop = clip_len, crop
         arr = (ctypes.c_char_p * len(paths))(
             *[p.encode() for p in paths])
-        self._handle = _LIB.ml_corpus_open(
+        self._lib = lib
+        self._handle = lib.ml_corpus_open(
             arr, len(paths), clip_len, stride, crop, queue_cap, n_threads,
             _cascade_xml().encode(), detect_every,
             1 if track == "lk" else 0,
@@ -185,7 +289,7 @@ class NativeCorpusLoader:
             with self._lock:
                 if self._closed:
                     return
-                ok = _LIB.ml_corpus_next(
+                ok = self._lib.ml_corpus_next(
                     self._handle,
                     buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                     ctypes.byref(vi), ctypes.byref(sf))
@@ -198,12 +302,12 @@ class NativeCorpusLoader:
         with self._lock:
             if self._closed:
                 return 0
-            return int(_LIB.ml_corpus_frames_decoded(self._handle))
+            return int(self._lib.ml_corpus_frames_decoded(self._handle))
 
     def close(self) -> None:
         with self._lock:
             if not self._closed:
-                _LIB.ml_corpus_close(self._handle)
+                self._lib.ml_corpus_close(self._handle)
                 self._closed = True
 
     def __enter__(self):
@@ -226,8 +330,7 @@ def decode_video_native(path: str, crop: int, max_frames: int = 100000,
     ``decode.eye_landmarks``. ``init_eyes`` ([2, 2] first-frame eye
     points, same layout) seeds the eye tracker.
     """
-    if _LIB is None:
-        raise RuntimeError("native loader not built; run `make -C native`")
+    lib = _lib()
     out = np.empty((max_frames, crop, crop, 3), np.uint8)
     boxes = np.empty((max_frames, 4), np.float32)
     eyes = np.empty((max_frames, 4), np.float32)
@@ -235,7 +338,7 @@ def decode_video_native(path: str, crop: int, max_frames: int = 100000,
     if init_eyes is not None:
         seed = np.ascontiguousarray(
             np.asarray(init_eyes, np.float32).reshape(4))
-    n = _LIB.ml_decode_video(
+    n = lib.ml_decode_video(
         path.encode(), crop, _cascade_xml().encode(),
         _cascade_xml("haarcascade_eye.xml").encode(), detect_every,
         1 if track == "lk" else 0, 1 if align else 0,

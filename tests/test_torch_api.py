@@ -19,6 +19,7 @@ from mimamo_tpu_torch import api, weights
 from mimamo_tpu_torch.data.crops import CropSource
 
 from test_torch_runner import S, T, _configs
+from test_torch_decode import same_native_library  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "bench"))
 import tracker_eval  # noqa: E402

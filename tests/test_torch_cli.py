@@ -34,6 +34,7 @@ from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.io import decode
 from mimamo_tpu_torch.runner import Mimamo
 
+from test_torch_decode import same_native_library  # noqa: F401
 from test_torch_serve import (CLIP, S, SMALL_FLAGS, small_configs,
                               small_weights)
 
@@ -234,7 +235,9 @@ def test_predict_corpus_matches_jax(case, capsys, tmp_path):
                                str(videos / "*.mp4"), "--out-dir", out,
                                "--batch", "2", "--no-native", "--ckpt",
                                case["ckpt"]] + FLAGS)
-    assert rc == 0 and got.keys() == want.keys()
+    # the port's summary also names the loader that ran
+    assert rc == 0 and got.keys() == want.keys() | {"loader"}
+    assert got["loader"] == "python"
     for k in ("videos", "failed", "frames", "resumed_skipped"):
         assert got[k] == want[k], k
     for p in paths:

@@ -5,8 +5,9 @@ two-process sharding, per-video failure isolation, aligned runs. The
 per-video CSVs are held against the JAX ``CorpusRunner`` with the same
 weights (``weights.from_jax_variables``) at atol 1e-5; aligned runs
 against the port's own ``MimamoAPI.predict(align=True)``. The native
-loader's cases skip where ``native/libmimamo_native.so`` is not built
-(``make -C native``)."""
+loader's cases build the library at first use
+(``native_loader.build``, into ``mimamo_tpu_torch/_build/``) and skip only
+where it cannot build (no ``g++`` or no OpenCV 4 headers)."""
 
 import json
 import os
@@ -22,14 +23,21 @@ from mimamo_tpu_torch.corpus import CorpusRunner
 from mimamo_tpu_torch.io import decode, native_loader
 from mimamo_tpu_torch.runner import Mimamo
 
+from test_torch_decode import same_native_library  # noqa: F401
 from test_torch_serve import small_configs, small_weights
 
 pytest.importorskip("cv2")
 
 ATOL = 1e-5
 LENGTHS = [14, 9, 20]
-needs_native = pytest.mark.skipif(not native_loader.available(),
-                                  reason="libmimamo_native.so not built")
+
+
+@pytest.fixture
+def needs_native():
+    """Builds the native library (decided here, not at import: the test
+    workers must all collect the same tests)."""
+    if not native_loader.available():
+        pytest.skip(f"native library: {native_loader.build_error()}")
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +84,7 @@ def _manifest(out_dir, name="manifest.jsonl"):
 
 
 class TestNativeLoader:
-    @needs_native
+    @pytest.mark.usefixtures("needs_native")
     def test_clip_stream_shapes_and_coverage(self, corpus_dir):
         clips, eovs = [], {}
         with native_loader.NativeCorpusLoader(
@@ -94,7 +102,7 @@ class TestNativeLoader:
                   for vi in range(3)}
         assert starts == {0: [0, 4, 6], 1: [0, 1], 2: [0, 4, 8, 12]}
 
-    @needs_native
+    @pytest.mark.usefixtures("needs_native")
     def test_decode_failure_sentinel(self, tmp_path):
         with native_loader.NativeCorpusLoader(
                 [str(tmp_path / "missing.mp4")], clip_len=8, stride=4,
@@ -102,7 +110,7 @@ class TestNativeLoader:
             out = list(loader)
         assert out[0][1] == ~0 and out[0][2] == -1
 
-    @needs_native
+    @pytest.mark.usefixtures("needs_native")
     def test_decode_video_native(self, corpus_dir):
         crops, boxes, eyes = native_loader.decode_video_native(
             str(corpus_dir / "v0.mp4"), crop=32)
@@ -115,13 +123,33 @@ class TestNativeLoader:
                       [y0 + 0.38 * bh, x0 + 0.78 * bw]], rtol=1e-5)
 
     def test_unbuilt_library_raises(self, monkeypatch):
-        """Without the library the loader raises, naming the build."""
-        monkeypatch.setattr(native_loader, "_LIB", None)
+        """Where the library does not build, ``available()`` is False,
+        ``build_error()`` says why, and the loader and
+        ``decode_video_native`` raise with that text."""
+        def no_compiler():
+            raise RuntimeError("g++ not found")
+
+        monkeypatch.setattr(native_loader, "_LIB_PATHS", ())
+        monkeypatch.setattr(native_loader, "_NATIVE",
+                            native_loader._Library(build=no_compiler))
         assert not native_loader.available()
-        with pytest.raises(RuntimeError, match="make -C native"):
+        assert native_loader.build_error().startswith("g++ not found")
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
             native_loader.NativeCorpusLoader(["x.mp4"], 8, 4, 32)
-        with pytest.raises(RuntimeError, match="make -C native"):
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
             native_loader.decode_video_native("x.mp4", 32)
+        assert native_loader.cascade("x.xml") is None
+
+    @pytest.mark.usefixtures("needs_native")
+    def test_library_builds_outside_native(self):
+        """The library is compiled into the port's build directory, keyed
+        by the source's hash, and ``native/`` gets no build product."""
+        before = sorted(os.listdir(native_loader.SOURCE.parent))
+        path = native_loader.build()
+        assert path.parent == native_loader.BUILD_DIR
+        assert path.name.startswith("libmimamo_native_") and path.exists()
+        assert native_loader.build() == path          # no rebuild
+        assert sorted(os.listdir(native_loader.SOURCE.parent)) == before
 
 
 class TestCorpusRunner:
@@ -132,7 +160,7 @@ class TestCorpusRunner:
         JAX runner's series at atol 1e-5 (Python loader); a second run
         skips all three."""
         if use_native and not native_loader.available():
-            pytest.skip("native lib not built")
+            pytest.skip(f"native library: {native_loader.build_error()}")
         model = case[0]
         out = str(tmp_path / "out")
         runner = CorpusRunner(model, out, batch_clips=2,
@@ -238,7 +266,7 @@ class TestShortVideos:
             0, 255, (5, 48, 64, 3)).astype(np.uint8))
         return root
 
-    @needs_native
+    @pytest.mark.usefixtures("needs_native")
     def test_native_loader_pads_short_video(self, short_dir):
         clips = []
         with native_loader.NativeCorpusLoader(
@@ -260,7 +288,7 @@ class TestShortVideos:
         """A 5-frame video: 1 + 5 CSV lines equal to the JAX runner's; an
         unreadable file is ``decode_failed``."""
         if use_native and not native_loader.available():
-            pytest.skip("native lib not built")
+            pytest.skip(f"native library: {native_loader.build_error()}")
         model, jmodel, variables = case
         tiny = str(short_dir / "tiny.mp4")
         missing = str(short_dir / "missing.mp4")

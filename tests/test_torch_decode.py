@@ -30,6 +30,21 @@ def clip():
                                     motion="sine", speed=2.0, seed=3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def same_native_library():
+    """The JAX package looks for the native library only where
+    ``make -C native`` puts it, while the port builds its own at first use
+    (``native_loader.build``). Hand the JAX package the port's build, so
+    that both detect faces with one library, or, where it does not build,
+    neither does. Module-scoped, so that the modules' reference fixtures
+    see it too (the test files that compare decoded videos import it)."""
+    with pytest.MonkeyPatch.context() as mp:
+        if tnative.available():
+            mp.setattr(jnative, "_LIB_PATHS", (tnative._NATIVE.lib._name,))
+            mp.setattr(jnative, "_LIB", jnative._load_lib())
+        yield
+
+
 class FakeFaceDet:
     """Detections in cv2's (x, y, w, h), a given list per call; an empty
     list is a miss."""
