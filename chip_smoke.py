@@ -78,9 +78,11 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      (<= 1e-6, with launch counts), ``extract`` against ``VideoProcessor``
      and ``FeatureExtractor``, ``eval --batch-streams 8`` against 1 (<
      1e-4), ``train`` for one epoch and its checkpoint restored.
-     ``corpus``: ``predict-corpus`` with the Python loader (and the native
-     one where it is built), a resumed run, and ``--align`` against ``cli
-     predict --align`` per video (<= 1e-6), frames/s;
+     ``corpus``: ``predict-corpus`` with the Python loader and, where
+     ``io.native_loader`` builds the native library at first use, the
+     native one (the build's outcome reported either way; each run's
+     summary names its loader), a resumed run, and ``--align`` against
+     ``cli predict --align`` per video (<= 1e-6), frames/s;
  12. ``probes``: the layer1 and layer2 probes through their entry points
      (``python -m mimamo_tpu_torch.bench.layer1_probe`` / ``layer2_probe``
      at 384 frames, one timed batch each, the layer2 probe's three variants
@@ -108,9 +110,24 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      the card), then ``cli predict --crops --ckpt`` on the card against
      ``--cpu`` and the checkpoint's embeddings card against CPU, at the
      ``fp32`` phase's gates, with the launches of the card's predict;
- 15. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
+ 15. ``variants``: the model variants (``VARIANTS``: micro-only and
+     macro-only streams, 2 GRU layers, snippets of 4, appearance stride 2,
+     a backbone input of 112 for crops of 112) through ``predict_clips`` at
+     the flagship step in bf16 and fp32: finite values, the launches of one
+     forward (no phase kernel without the micro stream, no stem or layer2
+     without the macro one, no stem kernel at a backbone input other than
+     twice the crop), the frames reaching the stem and layer2 (B x T / k at
+     stride k), step and backbone times; the fp32 card against the CPU on
+     one clip x 8 frames (the ``fp32`` phase's gates); the fp32 streaming
+     path at 2 GRU layers and at stride 2 (:func:`variant_stream`: where
+     two FFTs put a phase difference on the two sides of the +-pi wrap,
+     the outputs are reported and the variant's own path is gated);
+     layer2 against its plain
+     version on the 14 x 14 grid of the 112 backbone input;
+ 16. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
      gate's bound under ``tol_max_rel`` or ``tol_abs``, the launch counts of
-     each path) and, last, the device line.
+     each path, each variant's under ``launches_variant_<name>``) and, last,
+     the device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
 of the JAX package.
@@ -141,7 +158,7 @@ from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
                                             PEAK_TF32_FLOP_PER_S, card,
                                             max_rel, time_ms)
 from mimamo_tpu_torch.config import (BackboneSpec, ClipSpec, MimamoConfig,
-                                     PyramidSpec, TrainSpec)
+                                     PyramidSpec, TemporalSpec, TrainSpec)
 from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.data.eval import evaluate_affwild2
 from mimamo_tpu_torch.kernels import (_build, layer1_dots_kernel,
@@ -459,14 +476,13 @@ def check_stem(crops: torch.Tensor, model: Mimamo) -> dict:
 
 def check_layer2(crops: torch.Tensor, model: Mimamo,
                  name: str = "layer2_fused", plain_batch: int = 10) -> dict:
-    """layer2 on the layer1 output of ``crops``: against its plain version
+    """layer2 on the layer1 output of ``crops`` (through the model's own
+    stem route: the stem kernel, or the resize and conv1 of a backbone
+    input other than twice the crop): against its plain version
     (max-rel < BF16_REL_TOL), its time, the plain version's, four cuDNN
     bottlenecks' (the library call) and its bound."""
     folded = model._backbone_folded()
-    w2, bias = folded.stem
-    stem = stem_kernel.stem_fused(crops, w2, bias,
-                                  model.config.backbone.mean_rgb)
-    x = folded._stage(stem.permute(0, 3, 1, 2), 1).permute(
+    x = folded._stage(folded.run_stem(crops), 1).permute(
         0, 2, 3, 1).contiguous()                       # layer1 output
     blocks = folded.layer2
     got = layer2_kernel.layer2_fused(x, blocks)
@@ -622,6 +638,18 @@ def stage_breakdown(model: Mimamo, clips: np.ndarray,
     torch.cuda.synchronize()
     return {name: prev.elapsed_time(event)
             for (_, prev), (name, event) in zip(marks, marks[1:])}
+
+
+def clip_step_ms(model: Mimamo, clips: np.ndarray) -> list:
+    """Host times (ms) of 5 ``predict_clips`` steps, each ending in a
+    synchronize."""
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        model.predict_clips(clips)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
 
 
 def median_stages(runs: list) -> dict:
@@ -1058,13 +1086,8 @@ def check_fp32(state: dict, clips: np.ndarray, small_cpu: tuple,
                             expected_launches(fp32=True))
     if tuple(out.shape) != (B, T, 2) or not torch.isfinite(out).all():
         raise AssertionError(f"fp32 predict_clips gave {tuple(out.shape)}")
-    times = []
-    for _ in range(5):
-        t = time.perf_counter()
-        model.predict_clips(clips)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    step = statistics.median(times)
+    times = clip_step_ms(model, clips)
+    step = statistics.median(times) / 1e3
     stages = median_stages([stage_breakdown(model, clips) for _ in range(3)])
     rates = {name: flops / (stages["layer2_cudnn" if name == "layer2"
                                    else name] * 1e-3) / 1e12
@@ -1074,12 +1097,7 @@ def check_fp32(state: dict, clips: np.ndarray, small_cpu: tuple,
     torch.backends.cudnn.allow_tf32 = True
     try:
         model.predict_clips(clips)
-        tf32 = []
-        for _ in range(5):
-            t = time.perf_counter()
-            model.predict_clips(clips)
-            torch.cuda.synchronize()
-            tf32.append(time.perf_counter() - t)
+        tf32 = clip_step_ms(model, clips)
     finally:
         torch.backends.cudnn.allow_tf32 = False
     small = clips[:1, :8]
@@ -1089,11 +1107,11 @@ def check_fp32(state: dict, clips: np.ndarray, small_cpu: tuple,
                                       ).cpu()
     cpu_out, cpu_emb = small_cpu
     report = {"fp32_frames_per_s": B * T / step, "fp32_step_ms": step * 1e3,
-              "fp32_steps_ms": [x * 1e3 for x in times],
+              "fp32_steps_ms": times,
               "fp32_stage_ms": stages,
               "fp32_stage_sum_ms": sum(stages.values()),
               "fp32_conv_tflop_per_s": rates,
-              "fp32_step_ms_cudnn_tf32_on": statistics.median(tf32) * 1e3,
+              "fp32_step_ms_cudnn_tf32_on": statistics.median(tf32),
               "fp32_launches": launches,
               "fp32_card_vs_cpu_emb_max_rel": max_rel(card_emb, cpu_emb),
               "fp32_card_vs_cpu_out_max_rel": max_rel(card_out, cpu_out),
@@ -1679,11 +1697,19 @@ def check_cli(state: dict, cfg: MimamoConfig, ckpt: str, media: dict,
 def check_corpus(ckpt: str, media: dict, line: str) -> None:
     """``cli predict-corpus`` at the default config over the 3 videos:
     the Python loader (box crops on the host), the native loader where the
-    library is built (never built here), a resumed run, and ``--align``
+    library builds (``io.native_loader`` compiles it at first use; the
+    report carries the outcome and, where it fails, why), each run's
+    summary naming its loader, frames/s of each, a resumed run, and
+    ``--align``
     with the landmark sidecars against ``cli predict --align`` of each
     video."""
     from mimamo_tpu_torch.io import native_loader
-    report = {"card": line, "native_available": native_loader.available()}
+    t = time.perf_counter()
+    report = {"card": line, "native_available": native_loader.available(),
+              "native_build_error": native_loader.build_error(),
+              "native_library": str(getattr(native_loader._NATIVE.lib,
+                                            "_name", None)),
+              "native_first_use_s": time.perf_counter() - t}
     glob_ = os.path.join(media["dir"], "*.mp4")
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
@@ -1707,7 +1733,8 @@ def check_corpus(ckpt: str, media: dict, line: str) -> None:
                 "manifest": {k: [r["status"], r.get("frames")]
                              for k, r in manifest.items()}}
             ok = ok and (
-                stats["videos"] == len(CORPUS_T) and stats["failed"] == 0
+                stats["loader"] == loader
+                and stats["videos"] == len(CORPUS_T) and stats["failed"] == 0
                 and stats["frames"] == sum(CORPUS_T)
                 and again["resumed_skipped"] == len(CORPUS_T)
                 and again["videos"] == 0
@@ -1988,6 +2015,272 @@ def check_crops(state: dict, line: str) -> tuple:
     return recs, report
 
 
+# -- the model variants -----------------------------------------------------
+
+# name -> (TemporalSpec overrides, BackboneSpec overrides) of the default
+# config: the paper's stream ablations, stacked GRUs, snippet pooling, the
+# appearance stride and a backbone input of the crop's own size
+VARIANTS = {"micro": ({"streams": "micro"}, {}),
+            "macro": ({"streams": "macro"}, {}),
+            "gru_layers2": ({"gru_layers": 2}, {}),
+            "snippet4": ({"snippet_len": 4}, {}),
+            "stride2": ({}, {"appearance_stride": 2}),
+            "backbone112": ({}, {"input_size": S})}
+VARIANT_CLIP_T = 8          # frames of the card-vs-CPU clip
+# streamed chunks against the whole clip, fp32 on the card (max-rel)
+VARIANT_STREAM_REL_TOL = 1e-5
+
+
+def variant_config(name: str, dtype: str) -> MimamoConfig:
+    temporal, backbone = VARIANTS[name]
+    return MimamoConfig(backbone=BackboneSpec(dtype=dtype, **backbone),
+                        temporal=TemporalSpec(**temporal))
+
+
+def variant_launches(cfg: MimamoConfig) -> dict:
+    """Launches of one forward of ``cfg``: the phase kernel where the micro
+    stream runs; where the macro stream runs, the stem kernel of the dtype
+    when the backbone input is twice the crop, and layer2's 4 in bf16."""
+    spec, bb = cfg.temporal, cfg.backbone
+    fp32 = bb.dtype == "float32"
+    stem = spec.use_macro and bb.input_size == 2 * S
+    return {"phase_diff_resize": int(spec.use_micro),
+            "stem_fused": int(stem and not fp32),
+            "layer2_fused": 4 * int(spec.use_macro and not fp32),
+            "stem_fused[f32]": int(stem and fp32),
+            "layer1_dots": 0, "layer2_g4_dots": 0}
+
+
+class FramesSeen:
+    """Inside the block, counts the frames that reach the stem and layer2
+    kernel wrappers (the backbone calls them through their modules)."""
+
+    def __enter__(self):
+        self.frames = {"stem": 0, "layer2": 0}
+        self._real = (stem_kernel.stem_fused, layer2_kernel.layer2_fused)
+
+        def stem(crops, *args):
+            self.frames["stem"] += crops.shape[0]
+            return self._real[0](crops, *args)
+
+        def layer2(x, blocks):
+            self.frames["layer2"] += x.shape[0]
+            return self._real[1](x, blocks)
+
+        stem_kernel.stem_fused, layer2_kernel.layer2_fused = stem, layer2
+        return self
+
+    def __exit__(self, *exc):
+        stem_kernel.stem_fused, layer2_kernel.layer2_fused = self._real
+
+
+# a phase-stack value that moved by more than this between two FFTs of the
+# same frames (cuFFT plans differ with the batch; the CPU has its own FFT)
+# took a source pixel's phase difference across the +-pi wrap
+PHASE_JUMP = 0.1
+
+
+def phase_jumps(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int(((a.float().cpu() - b.float().cpu()).abs() > PHASE_JUMP).sum())
+
+
+def chunk_inputs(model: Mimamo, clips: np.ndarray, start: int,
+                 context: bool = True) -> torch.Tensor:
+    """The frames a session feeds for the chunk at ``start`` (with its
+    context frame: the frame before, or its own first frame for a fresh
+    slot), as float32 on the model's device."""
+    x = torch.from_numpy(clips[:, start:start + CHUNK])
+    if context:
+        ctx = clips[:, max(start - 1, 0):max(start, 1)]
+        x = torch.cat([torch.from_numpy(ctx), x], dim=1)
+    return x.to(model.device).float()
+
+
+def variant_stream(model: Mimamo, state: dict, clips: np.ndarray) -> dict:
+    """The fp32 variant streamed on the card (a session of 8 slots fed
+    chunks of 16) against its ``predict_clips``.
+
+    A chunk's FFT runs in another batch than the whole clip's, and the
+    two can put a phase difference on the two sides of the +-pi wrap
+    (``phase_jumps``), which moves the outputs by far more than rounding.
+    So a comparison of outputs is gated where no phase value jumped, and
+    the path the variant changes is gated always:
+      * stride 1 (stacked GRUs): the temporal model over the whole clip's
+        own phase stacks and embeddings, chunk by chunk with its carries,
+        against one pass (VARIANT_STREAM_REL_TOL); the session against
+        ``predict_clips``;
+      * stride k > 1, where each chunk anchors on its own grid after its
+        context frame (as in the JAX package): every chunk's embeddings on
+        the card against the CPU (the ``fp32`` phase's embedding gate);
+        ``predict_stream``'s first chunk (clip mode) against
+        ``predict_clips`` before its first anchor clamp; the session's
+        first two chunks of one slot against a CPU session at the output
+        gate. Raises past a gate."""
+    whole = model.predict_clips(clips).cpu().numpy()
+    _sess, streamed = fill_session(model, clips)
+    x = torch.from_numpy(clips).cuda().float()
+    stacks = model._micro_motion(to_grayscale(x))
+    k = model.config.backbone.appearance_stride
+    out = {}
+    if k == 1:
+        emb = model.embed_frames(x)
+        full, _ = model.temporal(stacks, emb)
+        parts, carries = [], None
+        for start in range(0, T, CHUNK):
+            pairs = stacks[:, max(start - 1, 0):start + CHUNK - 1]
+            o, carries = model.temporal(pairs, emb[:, start:start + CHUNK],
+                                        carries, num_frames=CHUNK)
+            parts.append(o)
+        jumps = 0
+        for start in range(0, T, CHUNK):
+            chunk = model._micro_motion(to_grayscale(
+                chunk_inputs(model, clips, start)))
+            if start == 0:
+                chunk = chunk[:, 1:]       # pair 0 is the frame with itself
+            jumps += phase_jumps(
+                chunk, stacks[:, max(start - 1, 0):start + CHUNK - 1])
+        out.update({
+            "temporal_chunked_vs_whole_max_rel": max_rel(
+                torch.cat(parts, dim=1), full),
+            "session_vs_clips_max_rel": max_rel(streamed, whole),
+            "session_phase_jumps": jumps})
+        ok = (out["temporal_chunked_vs_whole_max_rel"]
+              <= VARIANT_STREAM_REL_TOL
+              and (jumps or out["session_vs_clips_max_rel"]
+                   <= VARIANT_STREAM_REL_TOL))
+    else:
+        f_star = k * (-(-CHUNK // k) - 1) + 1
+        first, _ = model.predict_stream(clips[:, :CHUNK])
+        first_jumps = phase_jumps(model._micro_motion(to_grayscale(
+            x[:, :CHUNK])), stacks[:, :CHUNK - 1])
+        cpu = Mimamo(model.config, device="cpu")
+        cpu.load_state_dict(state)
+        emb_rel = 0.0
+        for start in range(0, T, CHUNK):
+            frames = chunk_inputs(model, clips, start)
+            emb_rel = max(emb_rel, max_rel(
+                model.embed_frames(frames)[:, 1:].cpu(),
+                cpu.embed_frames(frames.cpu())[:, 1:]))
+        sess = StreamingSession(cpu, capacity=1, chunk=CHUNK, dtype=np.uint8)
+        slot = sess.add_stream()
+        cpu_stream = np.concatenate([
+            sess.feed({slot: clips[0, start:start + CHUNK]})[slot]
+            for start in (0, CHUNK)])
+        session_jumps = sum(phase_jumps(
+            model._micro_motion(to_grayscale(chunk_inputs(model, clips,
+                                                          start)[:1])),
+            cpu._micro_motion(to_grayscale(chunk_inputs(cpu, clips,
+                                                        start)[:1])))
+            for start in (0, CHUNK))
+        del sess, cpu
+        out.update({
+            "chunk_emb_card_vs_cpu_max_rel": emb_rel,
+            "first_chunk_vs_clips_before_clamp_max_rel": max_rel(
+                first[:, :f_star].cpu(), whole[:, :f_star]),
+            "first_clamp_frame": f_star, "first_chunk_phase_jumps":
+            first_jumps,
+            "session_card_vs_cpu_max_rel": max_rel(streamed[0, :2 * CHUNK],
+                                                   cpu_stream),
+            "session_card_vs_cpu_phase_jumps": session_jumps,
+            "seam_drift_max_abs": float(np.abs(streamed - whole).max()),
+            "clips_max_abs": float(np.abs(whole).max())})
+        ok = (emb_rel <= FP32_EMB_REL_TOL
+              and (first_jumps or out[
+                  "first_chunk_vs_clips_before_clamp_max_rel"]
+                  <= VARIANT_STREAM_REL_TOL)
+              and (session_jumps or out["session_card_vs_cpu_max_rel"]
+                   <= FP32_OUT_REL_TOL))
+    if not ok:
+        raise AssertionError(f"variant streaming at stride {k}: {out}")
+    return out
+
+
+def check_variants(line: str) -> tuple:
+    """Each of VARIANTS through ``predict_clips`` at the flagship step
+    (B x T of 112^2 crops) in bf16 and fp32, random weights of the variant
+    from SEED: finite values of the right shape, the launches of one
+    forward (:func:`variant_launches`), the frames reaching the stem and
+    layer2 wrappers (B x ceil(T / k) at stride k, none without the macro
+    stream), the step time and the backbone's device time; the fp32 card
+    against the CPU on one clip x 8 frames (the ``fp32`` phase's gates);
+    the fp32 streaming path at ``gru_layers2`` and ``stride2``
+    (:func:`variant_stream`); layer2 against its plain version on the
+    14 x 14 grid of ``backbone112`` (record ``layer2_fused@backbone112``).
+    Returns (records, report)."""
+    rng = np.random.default_rng(SEED + 40)
+    clips = rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
+    small = clips[:1, :VARIANT_CLIP_T]
+    recs, report = [], {"card": line}
+    for name in VARIANTS:
+        row = report[name] = {}
+        cfg32 = variant_config(name, "float32")
+        spec, k = cfg32.temporal, cfg32.backbone.appearance_stride
+        state = weights.init_variables(cfg32, SEED)
+        cpu = Mimamo(cfg32, device="cpu")
+        cpu.load_state_dict(state)
+        with torch.no_grad():
+            cpu_out = cpu.predict_clips(small)
+            cpu_emb = (cpu.embed_frames(torch.from_numpy(small).float())
+                       if spec.use_macro else None)
+        del cpu
+        frames = B * -(-T // k) if spec.use_macro else 0
+        for dtype in ("bfloat16", "float32"):
+            cfg = variant_config(name, dtype)
+            model = Mimamo(cfg)
+            model.load_state_dict(state)
+            with torch.no_grad():
+                model.predict_clips(clips)                   # warm-up
+                torch.cuda.synchronize()
+                with FramesSeen() as seen:
+                    out, launches = counted(lambda: model.predict_clips(clips),
+                                            variant_launches(cfg))
+                want_frames = {
+                    "stem": frames if cfg.backbone.input_size == 2 * S else 0,
+                    "layer2": frames if dtype == "bfloat16" else 0}
+                if (tuple(out.shape) != (B, T, 2)
+                        or not torch.isfinite(out).all()
+                        or seen.frames != want_frames):
+                    raise AssertionError(
+                        f"variant {name} {dtype}: {tuple(out.shape)}, "
+                        f"frames {seen.frames} != {want_frames}")
+                times = clip_step_ms(model, clips)
+                x = torch.from_numpy(clips).cuda().float()
+                row[dtype] = {
+                    "step_ms": statistics.median(times), "steps_ms": times,
+                    "frames_per_s": B * T / statistics.median(times) * 1e3,
+                    "launches": launches, "kernel_frames": seen.frames,
+                    "backbone_ms": (time_ms(lambda: model.embed_frames(x),
+                                            iters=3, batch=2)
+                                    if spec.use_macro else 0.0)}
+                if dtype == "float32":
+                    row["fp32_card_vs_cpu_out_max_rel"] = max_rel(
+                        model.predict_clips(small).cpu(), cpu_out)
+                    if spec.use_macro:
+                        row["fp32_card_vs_cpu_emb_max_rel"] = max_rel(
+                            model.embed_frames(torch.from_numpy(
+                                small).cuda().float()).cpu(), cpu_emb)
+                    if name in ("gru_layers2", "stride2"):
+                        row["stream"] = variant_stream(model, state, clips)
+                if name == "backbone112" and dtype == "bfloat16":
+                    rec = check_layer2(x.reshape(B * T, S, S, 3), model,
+                                       "layer2_fused@backbone112",
+                                       plain_batch=2)
+                    rec["backbone_size"] = S
+                    rec["launches"] = launches["layer2_fused"]
+                    recs.append(rec)
+                del x
+            del model
+            torch.cuda.empty_cache()
+        print(json.dumps({"variant": name, **row, "card": line}),
+              flush=True)
+        if not (row["fp32_card_vs_cpu_out_max_rel"] <= FP32_OUT_REL_TOL
+                and row.get("fp32_card_vs_cpu_emb_max_rel", 0.0)
+                <= FP32_EMB_REL_TOL):
+            raise AssertionError(f"variant {name}: fp32 card and CPU "
+                                 f"disagree: {row}")
+    return recs, report
+
+
 def _dag_sources(cfg: MimamoConfig) -> tuple:
     """Seeded reference-shaped sources: a ResNet-50 ``state_dict`` under
     the FER+ MatConvNet ``dag`` names (1x1-conv classifier, BN counters)
@@ -2141,17 +2434,11 @@ def main() -> int:
     if tuple(out.shape) != (B, T, 2) or not torch.isfinite(out).all():
         raise AssertionError(f"predict_clips gave {tuple(out.shape)}, "
                              f"finite={bool(torch.isfinite(out).all())}")
-    step_times = []
-    for _ in range(5):
-        t = time.perf_counter()
-        model.predict_clips(clips)
-        torch.cuda.synchronize()
-        step_times.append(time.perf_counter() - t)
-    step = statistics.median(step_times)
+    step_times = clip_step_ms(model, clips)
+    step = statistics.median(step_times) / 1e3
     print(json.dumps({"predict_clips_frames_per_s": B * T / step,
-                      "step_ms": step * 1e3, "steps_ms":
-                      [s * 1e3 for s in step_times], "card": line}),
-          flush=True)
+                      "step_ms": step * 1e3, "steps_ms": step_times,
+                      "card": line}), flush=True)
     stages = median_stages([stage_breakdown(model, clips) for _ in range(3)])
     print(json.dumps({"stage_ms": stages,
                       "stage_sum_ms": sum(stages.values()),
@@ -2243,7 +2530,17 @@ def main() -> int:
     for rec in recs:
         rec["launches_convert_cli_predict"] = convert[
             "launches_cli_predict"][rec["name"]]
-    recs += crop_recs
+
+    # -- the model variants -------------------------------------------------------
+    t = time.perf_counter()
+    variant_recs, variants = check_variants(line)
+    print(json.dumps({"variants_s": time.perf_counter() - t}), flush=True)
+    for rec in recs:
+        for name in VARIANTS:
+            rec[f"launches_variant_{name}"] = {
+                dtype: variants[name][dtype]["launches"][rec["name"]]
+                for dtype in ("bfloat16", "float32")}
+    recs += crop_recs + variant_recs
     print(json.dumps({"smoke_s": time.perf_counter() - t_start}), flush=True)
 
     print(json.dumps({"kernels": recs}), flush=True)

@@ -30,7 +30,7 @@ from .config import MimamoConfig
 from .data.crops import CropSource
 from .io import decode
 from .preprocess import crop_video_chunked, pad_short_clip
-from .runner import Mimamo, resolve_device
+from .runner import Mimamo, resolve_device, stride_anchor_plan
 
 
 def _iter_crop_chunks(video_path: str, crop_size: int, device,
@@ -150,7 +150,12 @@ class VideoProcessor:
 class FeatureExtractor:
     """ResNet-50 FER+ pool5 features of precomputed crops: a crops
     ``.npy`` in, [T, 2048] float32 features out (``<root>.feat.npy``),
-    in fixed batches through ``Mimamo.embed_frames``."""
+    in fixed batches through the backbone. With ``appearance_stride``
+    k > 1 the backbone runs on frames 0, k, 2k, ... of the whole video
+    and the others are interpolated with one anchor plan over all T frames
+    (``runner.stride_anchor_plan``), so the features equal
+    ``embed_frames`` of the whole video: a plan per batch would re-anchor
+    at every batch boundary."""
 
     def __init__(self, config: Optional[MimamoConfig] = None,
                  state_dict=None, batch_size: int = 64, device=None,
@@ -162,14 +167,22 @@ class FeatureExtractor:
     def extract(self, crops_npy: str, out_path: Optional[str] = None
                 ) -> str:
         crops = np.load(crops_npy)          # uint8; cast on the device
+        t = len(crops)
+        k = self.model.config.backbone.appearance_stride
+        strided = k > 1 and t > 1
+        work = crops[::k] if strided else crops
         feats = []
-        for i in range(0, len(crops), self.batch):
-            piece = torch.from_numpy(crops[i:i + self.batch])
+        for i in range(0, len(work), self.batch):
+            piece = torch.from_numpy(work[i:i + self.batch])
             n = piece.shape[0]
             piece = pad_short_clip(piece, self.batch).to(self.model.device)
-            emb = self.model.embed_frames(piece.to(torch.float32)[None])
+            emb = self.model._embed_every(piece.to(torch.float32)[None])
             feats.append(emb[0, :n].cpu().numpy())
         feats = np.concatenate(feats, axis=0)
+        if strided:
+            i0, i1, frac = stride_anchor_plan(t, k)
+            feats = (feats[i0] * (1.0 - frac[:, None])
+                     + feats[i1] * frac[:, None])
         if out_path is None:
             # suffix the basename only
             root, ext = os.path.splitext(crops_npy)

@@ -8,9 +8,14 @@ docs/WEIGHTS.md), with the Caffe/MatConvNet stride placement
 converted FER+ checkpoints expect. Inference runs the BN-folded form,
 :class:`FoldedResNet50`, built by :func:`fold_batchnorm`:
 
-  * stem: ``kernels.stem_kernel`` (upscale + conv1 + relu + max pool from
-    the crop; replaces the JAX path's ``composite_stem``), in the
-    configured dtype (bf16 or fp32 kernel);
+  * stem: for a crop of exactly half ``input_size``, ``kernels.
+    stem_kernel`` (upscale + conv1 + relu + max pool from the crop;
+    replaces the JAX path's ``composite_stem``), in the configured dtype
+    (bf16 or fp32 kernel); at any other ratio (``--backbone-size 112`` of
+    a 112 crop, for one), ``preprocess.for_backbone``'s bilinear resize,
+    then conv1 + relu + max pool as ``F.conv2d`` / ``F.max_pool2d``, as
+    the JAX package runs it (both of its fused stems take only the exact
+    2x);
   * layer1, layer3, layer4: ``F.conv2d`` in channels_last, in the
     configured dtype (XLA lowered these outside any Pallas kernel);
   * layer2: ``kernels.layer2_kernel`` in bf16; ``F.conv2d`` like the other
@@ -39,6 +44,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from . import preprocess
 from .batchnorm import BatchNorm2d, stats_frozen
 from .config import BackboneSpec
 from .kernels import layer2_kernel, stem_kernel
@@ -163,21 +169,36 @@ def fold_batchnorm(model: ResNet50) -> Folded:
 
 
 class FoldedResNet50:
-    """BN-folded inference ResNet-50 on raw crops.
+    """BN-folded inference ResNet-50 on raw crops of ``crop_hw`` (default:
+    half ``spec.input_size``).
 
     Built once from :func:`fold_batchnorm`'s output; the weights are cast
     to the configured dtype and laid out for their consumers (the stem
     kernel, the layer2 kernel in bf16, channels_last ``F.conv2d`` for the
-    other stages). The layer2 route is chosen here, once, from
-    ``spec.dtype`` and on every device: ``run_layer2`` is
-    :meth:`_layer2_kernel` in bf16 and :meth:`_layer2_convs` in fp32.
+    other stages). Both routes are chosen here, once, on every device:
+    ``run_stem`` is :meth:`_stem_kernel` when ``spec.input_size`` is
+    exactly twice a square crop and :meth:`_stem_resized` otherwise (a
+    route the config picks, not a fallback: the stem kernel computes only
+    the exact 2x upscale); ``run_layer2`` is :meth:`_layer2_kernel` in
+    bf16 and :meth:`_layer2_convs` in fp32.
     """
 
-    def __init__(self, folded: Folded, spec: BackboneSpec):
+    def __init__(self, folded: Folded, spec: BackboneSpec,
+                 crop_hw: Optional[Tuple[int, int]] = None):
         self.spec = spec
+        self.crop_hw = tuple(crop_hw or (spec.input_size // 2,) * 2)
         dt = work_dtype(spec)
-        self.stem = stem_kernel.prepare_stem_weights(
-            *folded["conv1"], spec.channel_order, dt)
+        h, w = self.crop_hw
+        if spec.input_size == 2 * h == 2 * w:
+            self.stem = stem_kernel.prepare_stem_weights(
+                *folded["conv1"], spec.channel_order, dt)
+            self.run_stem = self._stem_kernel
+        else:
+            w1, b1 = folded["conv1"]
+            self.stem = None
+            self.conv1 = (w1.to(dt).contiguous(
+                memory_format=torch.channels_last), b1.to(dt))
+            self.run_stem = self._stem_resized
         if dt == torch.bfloat16:
             self.layer2 = layer2_kernel.pack_layer2_params(folded, dt)
             self.run_layer2 = self._layer2_kernel
@@ -221,6 +242,20 @@ class FoldedResNet50:
             x = self._bottleneck(x, blk)
         return x
 
+    def _stem_kernel(self, crops: torch.Tensor) -> torch.Tensor:
+        """upscale + conv1 + relu + pool through ``kernels.stem_kernel``
+        (NCHW view of its NHWC output)."""
+        return stem_kernel.stem_fused(crops, *self.stem,
+                                      self.spec.mean_rgb).permute(0, 3, 1, 2)
+
+    def _stem_resized(self, crops: torch.Tensor) -> torch.Tensor:
+        """``preprocess.for_backbone`` (resize to ``input_size``, flip,
+        mean) then conv1 + relu + 3x3/2 max pool, in the work dtype."""
+        x = preprocess.for_backbone(crops, self.spec).permute(0, 3, 1, 2)
+        x = F.conv2d(x.contiguous(memory_format=torch.channels_last),
+                     *self.conv1, stride=2, padding=3)
+        return F.max_pool2d(F.relu(x), 3, stride=2, padding=1)
+
     def _layer2_kernel(self, x: torch.Tensor) -> torch.Tensor:
         """layer2 through ``kernels.layer2_kernel`` (NCHW view of NHWC in
         and out)."""
@@ -233,15 +268,13 @@ class FoldedResNet50:
 
     def __call__(self, crops: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[N, S, S, 3] float32 RGB crops (0..255, S = input_size / 2) ->
+        """[N, H, W, 3] float32 RGB crops (0..255, (H, W) = ``crop_hw``) ->
         (pool5 embeddings [N, 2048] float32, FER+ logits [N, classes])."""
-        if crops.shape[1] * 2 != self.spec.input_size:
-            raise NotImplementedError(
-                f"crop size {crops.shape[1]} with backbone input_size "
-                f"{self.spec.input_size}: the port runs only the exact 2x "
-                f"upscale so far (see ROADMAP.md)")
-        stem = stem_kernel.stem_fused(crops, *self.stem, self.spec.mean_rgb)
-        x = self._stage(stem.permute(0, 3, 1, 2), 1)     # NCHW view of NHWC
+        if tuple(crops.shape[1:3]) != self.crop_hw:
+            raise ValueError(
+                f"crops {tuple(crops.shape[1:3])}: this backbone was built "
+                f"for {self.crop_hw} crops (its stem route depends on it)")
+        x = self._stage(self.run_stem(crops), 1)         # NCHW view of NHWC
         x = self._stage(self.run_layer2(x), 3)
         x = self._stage(x, 4)
         emb = x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)

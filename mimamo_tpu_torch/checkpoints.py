@@ -201,7 +201,7 @@ def apply_backbone_meta(config, ckpt_dir: Optional[str]):
 # -- reference two-stream checkpoints ------------------------------------------
 
 _GRU_KEY = re.compile(
-    r"^(gru_micro|gru_macro)\.(weight_ih|weight_hh|bias_ih|bias_hh)_l0$")
+    r"^(gru_micro|gru_macro)\.(weight_ih|weight_hh|bias_ih|bias_hh)_l\d+$")
 _MICRO_KEY = re.compile(
     r"^micro_cnn\.(conv\d+\.weight|bn\d+\.(weight|bias|running_mean|"
     r"running_var))$")
@@ -241,11 +241,11 @@ def load_temporal_state_dict(state_dict: Dict[str, Any],
 
     Canonical schema (translate foreign names with ``prefix_map``,
     source prefix -> canonical prefix): ``gru_micro.{weight_ih, weight_hh,
-    bias_ih, bias_hh}_l0``, the same for ``gru_macro``,
-    ``micro_cnn.conv<i>.weight``, ``micro_cnn.bn<i>.{weight, bias,
-    running_mean, running_var}``, ``micro_cnn.fc.*``, ``macro_proj.*``,
-    ``fusion.*``, ``head.*`` (``num_batches_tracked`` is skipped; the
-    port's GRUs have one layer, so ``_l1`` keys map to nothing). The port
+    bias_ih, bias_hh}_l<i>`` (one set per stacked layer), the same for
+    ``gru_macro``, ``micro_cnn.conv<i>.weight``, ``micro_cnn.bn<i>.{weight,
+    bias, running_mean, running_var}``, ``micro_cnn.fc.*``,
+    ``macro_proj.*``, ``fusion.*``, ``head.*`` (``num_batches_tracked`` is
+    skipped). The port
     flattens the micro CNN NCHW as torch
     does, so ``micro_cnn.fc.weight`` loads as it is; with ``spec`` and
     ``phase_size`` its input width is checked against
@@ -288,7 +288,9 @@ def merge_temporal(base: Dict[str, torch.Tensor],
     returns (merged, dropped).
 
     An overlay entry the config has no tensor for (a micro conv past the
-    config's depth) is dropped and counted. One whose shape differs from
+    config's depth, a GRU layer past ``gru_layers``, the inactive stream of
+    a ``streams`` ablation) is dropped and counted, so no dangling tensor
+    reaches the checkpoint. One whose shape differs from
     the config's is an error under ``strict`` (``ValueError`` naming every
     such tensor); without it it is dropped and counted too.
     """

@@ -22,12 +22,13 @@ directory (``checkpoints.save``, as ``train`` and ``convert`` write it),
 not an orbax one: convert the reference's ``.pth`` files with ``convert``,
 JAX weights with ``weights.from_jax_variables``.
 
+Every subcommand that builds a model takes the JAX CLI's model variants:
+``--streams micro|macro`` (the paper's stream ablations), ``--gru-layers``,
+``--snippet-len``, ``--appearance-stride`` and a ``--backbone-size`` other
+than twice ``--crop-size`` (the resize route of the stem).
+
 What the JAX CLI has and this one does not:
 
-  * model variants (``--streams``, ``--snippet-len``, ``--gru-layers``,
-    ``--appearance-stride``, a ``--backbone-size`` other than twice
-    ``--crop-size``): registered with the JAX defaults; another value
-    exits naming ROADMAP.md A16;
   * flags that chose a TPU lowering (``--fft-mode``, ``--stem-mode``,
     ``--use-pallas``): not registered, the port has one lowering each
     (cuFFT, the stem kernel, the kernels always on);
@@ -48,11 +49,7 @@ from typing import Optional
 import numpy as np
 
 from .config import (BackboneSpec, ClipSpec, MimamoConfig, PhaseSpec,
-                     PyramidSpec, TrainSpec)
-
-# model-variant flags: the port runs only the JAX defaults (ROADMAP.md A16)
-_VARIANT_DEFAULTS = {"streams": "both", "snippet_len": 1, "gru_layers": 1,
-                     "appearance_stride": 1}
+                     PyramidSpec, TemporalSpec, TrainSpec)
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -60,21 +57,24 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--stride", type=int, default=24)
     p.add_argument("--crop-size", type=int, default=112)
     p.add_argument("--backbone-size", type=int, default=224,
-                   help="backbone input; the port runs it at twice "
-                        "--crop-size only")
+                   help="backbone input; twice --crop-size runs the stem "
+                        "kernel, any other size a bilinear resize and a "
+                        "plain conv1")
     p.add_argument("--pyramid-height", type=int, default=3)
     p.add_argument("--orientations", type=int, default=4)
     p.add_argument("--phase-size", type=int, default=48)
     p.add_argument("--snippet-len", type=int, default=1,
-                   help="frames per snippet (only 1 is ported)")
+                   help="frames mean-pooled into one GRU step (the clip "
+                        "length must be a multiple)")
     p.add_argument("--gru-layers", type=int, default=1,
-                   help="stacked GRU layers per stream (only 1 is ported)")
+                   help="stacked GRU layers per stream")
     p.add_argument("--streams", default="both",
                    choices=["both", "micro", "macro"],
-                   help="stream ablation (only 'both' is ported)")
+                   help="stream ablation: both, or micro-only / macro-only")
     p.add_argument("--appearance-stride", type=int, default=1,
-                   help="run the ResNet every k-th frame (only 1 is "
-                        "ported)")
+                   help="run the ResNet every k-th frame and interpolate "
+                        "the embeddings between (a serving profile, not "
+                        "reference parity)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--cpu", action="store_true",
@@ -82,25 +82,18 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def _config(args) -> MimamoConfig:
-    for name, default in _VARIANT_DEFAULTS.items():
-        if getattr(args, name) != default:
-            raise SystemExit(
-                f"--{name.replace('_', '-')} {getattr(args, name)}: model "
-                f"variants are not ported yet (ROADMAP.md A16); the port "
-                f"runs {default!r}")
     s = args.crop_size
-    if args.backbone_size != 2 * s:
-        raise SystemExit(
-            f"--backbone-size {args.backbone_size}: the port runs the "
-            f"backbone at twice --crop-size ({2 * s}) only; other inputs "
-            f"are not ported yet (ROADMAP.md A16)")
     return MimamoConfig(
         pyramid=PyramidSpec(height=args.pyramid_height,
                             orientations=args.orientations,
                             input_size=(s, s)),
         phase=PhaseSpec(phase_size=args.phase_size),
         backbone=BackboneSpec(input_size=args.backbone_size,
-                              dtype=args.dtype),
+                              dtype=args.dtype,
+                              appearance_stride=args.appearance_stride),
+        temporal=TemporalSpec(snippet_len=args.snippet_len,
+                              gru_layers=args.gru_layers,
+                              streams=args.streams),
         clip=ClipSpec(clip_len=args.clip_len, stride=args.stride,
                       crop_size=s))
 
@@ -219,6 +212,14 @@ def cmd_train(args) -> int:
     config = checkpoints.apply_backbone_meta(
         dataclasses.replace(_config(args), train=train_spec), args.ckpt)
     device = _device(args)
+    if config.backbone.appearance_stride > 1:
+        print("note: --appearance-stride applies only where the frozen "
+              "backbone runs online; fine-tuning runs the real per-"
+              "frame backbone, and training from cached .feat.npy "
+              "applies no ADDITIONAL stride — but cached features "
+              "inherit whatever stride their extraction config used, "
+              "so they are not automatically stride-free",
+              file=sys.stderr)
     ds = _dataset(args, config)
     if len(ds) == 0:
         raise SystemExit("dataset produced 0 clips (too short sequences?)")
@@ -371,21 +372,26 @@ def _verify(args, config: MimamoConfig, state: dict, backbone_sd,
             check("backbone_embeddings", emb, emb_t)
             check("backbone_logits", logits, log_t)
         if args.temporal_pth:
-            spec, b, t = config.temporal, 2, 4
+            spec, b = config.temporal, 2
+            t = 4 * spec.snippet_len
             p = config.phase.phase_size
-            ph = rng.standard_normal(
-                (b, t - 1, config.num_phase, p, p)).astype(np.float32)
-            ft = rng.standard_normal(
-                (b, t, config.backbone.feature_dim)).astype(np.float32)
+            ph = ft = None
+            if spec.use_micro:
+                ph = rng.standard_normal(
+                    (b, t - 1, config.num_phase, p, p)).astype(np.float32)
+            if spec.use_macro:
+                ft = rng.standard_normal(
+                    (b, t, config.backbone.feature_dim)).astype(np.float32)
             want = torch_ref.temporal_forward(checkpoints.apply_prefix_map(
                 checkpoints.load_pth(args.temporal_pth),
-                _json_map(args.temporal_prefix_map)), spec, ph, ft)
+                _json_map(args.temporal_prefix_map)), spec, ph, ft,
+                num_frames=t)
             net = TwoStreamRNN(spec, config.num_phase, p,
                                config.backbone.feature_dim)
             net.load_state_dict(part("temporal."))
             net.to(device).eval()
-            got, _ = net(torch.from_numpy(ph).to(device),
-                         torch.from_numpy(ft).to(device))
+            got, _ = net(*(None if x is None else torch.from_numpy(x).to(
+                device) for x in (ph, ft)), num_frames=t)
             check("temporal_outputs", got, want)
     return report
 

@@ -53,9 +53,10 @@ class PhaseSpec:
 class BackboneSpec:
     """ResNet-50 FER+ appearance stream.
 
-    The port runs the backbone on crops of exactly half ``input_size``
-    (the stem kernel fuses the exact 2x upscale); preprocessing is the
-    MatConvNet convention: 0..255 pixels, per-channel mean subtraction.
+    Preprocessing is the MatConvNet convention: 0..255 pixels, per-channel
+    mean subtraction. A crop of exactly half ``input_size`` goes through
+    the stem kernel (the exact 2x upscale fused); any other ratio through
+    the bilinear resize and a plain conv1 (``backbone.FoldedResNet50``).
     """
 
     input_size: int = 224
@@ -64,8 +65,20 @@ class BackboneSpec:
     mean_rgb: Tuple[float, float, float] = (131.0912, 103.8827, 91.4953)
     channel_order: str = "rgb"  # "rgb" | "bgr"
     dtype: str = "float32"      # compute dtype: "float32" | "bfloat16"
+    # Serving profile (not reference parity): the ResNet runs on frames
+    # 0, k, 2k, ... only and the other embeddings are linear
+    # interpolations between anchors (frames past the last anchor hold
+    # it). Applies wherever ``Mimamo.embed_frames`` runs (inference and
+    # frozen-backbone training); fine-tuning ignores it. Streaming chunks
+    # anchor per chunk, so for k > 1 streamed outputs differ slightly from
+    # batch prediction of the same frames (the anchor grids shift at chunk
+    # seams).
+    appearance_stride: int = 1
 
     def __post_init__(self):
+        if self.appearance_stride < 1:
+            raise ValueError(f"appearance_stride must be >= 1, got "
+                             f"{self.appearance_stride}")
         if self.channel_order not in ("rgb", "bgr"):
             raise ValueError(f"channel_order must be 'rgb' or 'bgr', "
                              f"got {self.channel_order!r}")
@@ -78,9 +91,11 @@ class BackboneSpec:
 class TemporalSpec:
     """Two-stream GRU temporal model.
 
-    The port runs the fused two-stream model with one GRU layer and
-    per-frame steps; the stream ablations, stacked GRUs and snippet
-    pooling of the JAX package are listed in ROADMAP.md as not yet ported.
+    ``streams``: "both", or the paper's micro-only and macro-only
+    ablations ("micro" | "macro"; the inactive stream has no parameters
+    and is never computed). ``gru_layers``: stacked GRU layers per stream.
+    ``snippet_len``: frames mean-pooled into one GRU step (the clip length
+    must be a multiple of it; outputs repeat back to every frame).
     """
 
     streams: str = "both"
@@ -95,15 +110,26 @@ class TemporalSpec:
     snippet_len: int = 1
 
     def __post_init__(self):
-        for name, want in (("streams", "both"), ("gru_layers", 1),
-                           ("snippet_len", 1)):
-            if getattr(self, name) != want:
-                raise NotImplementedError(
-                    f"TemporalSpec.{name}={getattr(self, name)!r}: the port "
-                    f"supports only {want!r} so far (see ROADMAP.md)")
+        if self.streams not in ("both", "micro", "macro"):
+            raise ValueError(f"streams must be 'both', 'micro' or 'macro', "
+                             f"got {self.streams!r}")
+        if self.gru_layers < 1:
+            raise ValueError(f"gru_layers must be >= 1, got "
+                             f"{self.gru_layers}")
+        if self.snippet_len < 1:
+            raise ValueError(f"snippet_len must be >= 1, got "
+                             f"{self.snippet_len}")
         if self.output_activation not in ("linear", "tanh"):
             raise ValueError(f"output_activation must be 'linear' or "
                              f"'tanh', got {self.output_activation!r}")
+
+    @property
+    def use_micro(self) -> bool:
+        return self.streams in ("both", "micro")
+
+    @property
+    def use_macro(self) -> bool:
+        return self.streams in ("both", "macro")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,11 +3,12 @@
 
 Counterpart of ``to_grayscale``, ``upscale2x`` and ``for_backbone`` in
 ``mimamo_tpu/preprocess.py``: BT.601 luma for the micro stream, and the
-MatConvNet-style backbone input (exact 2x bilinear upscale of the aligned
-crop, per-channel mean subtraction, no scaling) for the macro stream. On
-the runner's path the backbone input is never materialized: the stem
-kernel forms it on the fly (``kernels.stem_kernel``); ``for_backbone`` is
-the plain reference for it.
+MatConvNet-style backbone input (bilinear resize of the aligned crop to
+the backbone's input, per-channel mean subtraction, no scaling) for the
+macro stream. At the exact 2x the runner's path never materializes the
+backbone input: the stem kernel forms it on the fly
+(``kernels.stem_kernel``), and ``for_backbone`` is the plain reference for
+it; at any other ratio ``for_backbone`` is the path.
 
 ``pad_short_clip``, ``window_starts``, ``sliding_windows`` and
 ``merge_window_predictions`` are the window bookkeeping of
@@ -74,13 +75,35 @@ def upscale2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def for_backbone(crops_rgb: torch.Tensor, spec: BackboneSpec) -> torch.Tensor:
-    """[..., S, S, 3] RGB crops (0..255) -> [..., 2S, 2S, 3] backbone
-    input in fp32: mean-subtracted, then exactly 2x upscaled, in the
-    configured channel order (the stem kernel's arithmetic order)."""
-    mean = torch.tensor(spec.mean_rgb, dtype=torch.float32,
-                        device=crops_rgb.device)
-    x = upscale2x(crops_rgb.to(torch.float32) - mean)
-    return x.flip(-1) if spec.channel_order == "bgr" else x
+    """[..., H, W, 3] RGB crops (0..255) -> [..., I, I, 3] backbone input
+    (I = ``spec.input_size``), mean-subtracted, in the configured channel
+    order.
+
+    A square crop of exactly I / 2 takes the stem kernel's arithmetic
+    order: the mean subtracted, then the exact 2x upscale, in fp32. Any
+    other size takes the JAX package's general branch, in its order: the
+    cast to the work dtype, the matmul-form bilinear resize in fp32 (IEEE,
+    :func:`ieee_fp32_matmul`; none when the crop is already I x I), the
+    cast back to the work dtype, then the channel flip and the mean
+    subtraction in the work dtype."""
+    h, w = crops_rgb.shape[-3], crops_rgb.shape[-2]
+    if spec.input_size == 2 * h == 2 * w:
+        mean = torch.tensor(spec.mean_rgb, dtype=torch.float32,
+                            device=crops_rgb.device)
+        x = upscale2x(crops_rgb.to(torch.float32) - mean)
+        return x.flip(-1) if spec.channel_order == "bgr" else x
+    from .phase import resize_bilinear
+    work = work_dtype(spec)
+    x = crops_rgb.to(work)
+    if w != spec.input_size:
+        size = (spec.input_size, spec.input_size)
+        with ieee_fp32_matmul():
+            x = resize_bilinear(x.to(torch.float32).movedim(-1, -3),
+                                size).movedim(-3, -1).to(work)
+    mean = torch.tensor(spec.mean_rgb, dtype=work, device=x.device)
+    if spec.channel_order == "bgr":
+        x, mean = x.flip(-1), mean.flip(0)
+    return x - mean
 
 
 def pad_short_clip(crops: Union[np.ndarray, torch.Tensor], clip_len: int):

@@ -14,6 +14,13 @@ and its layer2 run in the hand-written kernels of ``kernels/``; on the
 CPU (``device="cpu"``, as the tests run it) each kernel's wrapper takes
 its plain version.
 
+Every model variant of the config runs here as in the JAX package: a
+micro-only model (``TemporalSpec.streams="micro"``) runs no backbone and a
+macro-only one no phase stage, so their kernels do not launch;
+``appearance_stride`` k runs the backbone on every k-th frame
+(:func:`stride_anchor_plan`); a backbone input other than twice the crop
+takes the resize route of ``backbone.FoldedResNet50``.
+
 Weights: a :class:`Mimamo` is an ``nn.Module`` whose ``state_dict`` is the
 canonical torch schema (``backbone.*`` torchvision names, ``temporal.*``
 two-stream names; docs/WEIGHTS.md). ``weights.init_variables`` makes a
@@ -40,6 +47,32 @@ from .temporal import Carries, TwoStreamRNN
 
 # predict_stream's state: the GRU carries and the last frame [B, 1, S, S, 3]
 StreamCarries = Tuple[Carries, torch.Tensor]
+
+
+def stride_anchor_plan(t: int, k: int
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Interpolation plan of ``appearance_stride`` k over T frames (an own
+    copy of ``mimamo_tpu.runner.stride_anchor_plan``): frame f sits at
+    anchor position f / k, between anchors floor and floor + 1, clamped
+    (frames past the last anchor hold it). Returns (i0 [T] int32,
+    i1 [T] int32, frac [T] float32)."""
+    n = -(-t // k)                             # number of anchors
+    i0 = np.minimum(np.arange(t) // k, n - 1)
+    i1 = np.minimum(i0 + 1, n - 1)
+    frac = np.where(i1 > i0, (np.arange(t) / k) - i0, 0.0)
+    return i0.astype(np.int32), i1.astype(np.int32), frac.astype(np.float32)
+
+
+def interp_anchor_features(emb: torch.Tensor, t: int, k: int
+                           ) -> torch.Tensor:
+    """[B, N, F] anchor embeddings -> [B, T, F] per-frame embeddings: a
+    gather and a lerp, not a matmul, so the anchors come out bit-exact in
+    any dtype (the weights are cast to ``emb``'s)."""
+    i0, i1, frac = stride_anchor_plan(t, k)
+    w = torch.from_numpy(frac).to(emb)[None, :, None]
+    a = emb[:, torch.from_numpy(i0).to(emb.device, torch.long)]
+    b = emb[:, torch.from_numpy(i1).to(emb.device, torch.long)]
+    return a * (1 - w) + b * w
 
 
 def resolve_device(device=None) -> torch.device:
@@ -92,16 +125,31 @@ class Mimamo(nn.Module):
             with self._fold_lock:
                 if self._folded is None:
                     self._folded = FoldedResNet50(
-                        fold_batchnorm(self.backbone), self.config.backbone)
+                        fold_batchnorm(self.backbone), self.config.backbone,
+                        self.config.pyramid.input_size)
                 folded = self._folded
         return folded
 
     def embed_frames(self, crops_rgb: torch.Tensor) -> torch.Tensor:
         """[B, T, S, S, 3] float32 0..255 crops -> [B, T, F] pool5
-        embeddings (BN folded, inference mode)."""
+        embeddings (BN folded, inference mode). With
+        ``appearance_stride`` k > 1 the backbone runs on frames 0, k,
+        2k, ... only and the other embeddings are
+        :func:`interp_anchor_features` of those."""
+        t = crops_rgb.shape[1]
+        k = self.config.backbone.appearance_stride
+        if k == 1 or t == 1:
+            return self._embed_every(crops_rgb)
+        return interp_anchor_features(
+            self._embed_every(crops_rgb[:, ::k]), t, k)
+
+    def _embed_every(self, crops_rgb: torch.Tensor) -> torch.Tensor:
+        """``embed_frames`` of every frame, whatever the stride. A strided
+        view (the anchor frames) is copied into one contiguous batch: the
+        stem kernel reads its crops as one dense array."""
         b, t = crops_rgb.shape[:2]
         emb, _ = self._backbone_folded()(
-            crops_rgb.reshape((b * t,) + crops_rgb.shape[2:]))
+            crops_rgb.reshape((b * t,) + crops_rgb.shape[2:]).contiguous())
         return emb.reshape(b, t, -1)
 
     def _micro_motion(self, gray: torch.Tensor) -> torch.Tensor:
@@ -121,14 +169,31 @@ class Mimamo(nn.Module):
         ``carries``: the GRU carries of the previous chunk (streaming).
         ``include_first_pair``: the caller prepended the previous chunk's
         last frame, so the T - 1 later frames each have a predecessor pair
-        and T - 1 predictions come out. Frames are embedded one by one, so
-        the prepended frame feeds the micro stream only and never reaches
-        the backbone. ``first_pair_invalid``: see ``TwoStreamRNN``."""
+        and T - 1 predictions come out. At ``appearance_stride`` 1 the
+        prepended frame feeds the micro stream only and never reaches the
+        backbone; at k > 1 all T frames are embedded on the anchor grid
+        0, k, 2k, ... and the first embedding is dropped, as the JAX
+        package does (embedding only the later frames would shift every
+        anchor by one). ``first_pair_invalid``: see ``TwoStreamRNN``.
+
+        A micro-only model (``streams="micro"``) runs no backbone and a
+        macro-only one no phase stage, so their kernels do not launch."""
+        spec = self.config.temporal
         crops_rgb = crops_rgb.to(self.device).to(torch.float32)
-        phase_stacks = self._micro_motion(preprocess.to_grayscale(crops_rgb))
-        own = crops_rgb[:, 1:] if include_first_pair else crops_rgb
-        return self.temporal(phase_stacks, self.embed_frames(own), carries,
-                             first_pair_invalid)
+        t = crops_rgb.shape[1] - int(include_first_pair)
+        phase_stacks = emb = None
+        if spec.use_micro:
+            phase_stacks = self._micro_motion(
+                preprocess.to_grayscale(crops_rgb))
+        if spec.use_macro:
+            if not include_first_pair:
+                emb = self.embed_frames(crops_rgb)
+            elif self.config.backbone.appearance_stride == 1:
+                emb = self.embed_frames(crops_rgb[:, 1:])
+            else:
+                emb = self.embed_frames(crops_rgb)[:, 1:]
+        return self.temporal(phase_stacks, emb, carries, first_pair_invalid,
+                             num_frames=t)
 
     def _check_crops(self, crops_rgb, min_frames: int) -> torch.Tensor:
         if isinstance(crops_rgb, np.ndarray):

@@ -14,7 +14,11 @@ and is marked in ``first_pair_invalid``, so its step 0 equals clip mode.
 
 The state is replaced, never written in place, and everything runs on the
 current CUDA stream. A session spans one device; the weights are the
-model's own.
+model's own. With stacked GRUs the carries are [L, capacity, H] and the
+slots are their axis 1. With ``appearance_stride`` k > 1 each chunk
+(after its context frame) is anchored on its own grid, as the JAX session
+anchors it: streamed outputs then drift slightly from batch prediction of
+the same frames where the grids differ at the chunk seams.
 """
 
 from __future__ import annotations
@@ -45,6 +49,12 @@ class StreamingSession:
             np.zeros((capacity, 1, s, s, 3), self.dtype)).to(model.device)
         self._free = list(range(capacity))
         self._fresh = np.zeros(capacity, bool)
+        # slots are axis 0 of [B, H] carries, axis 1 of stacked [L, B, H]
+        self._slot_axis = 0 if cfg.temporal.gru_layers == 1 else 1
+
+    def _slot_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        """[capacity] bool -> broadcastable over the carries' layout."""
+        return mask[:, None] if self._slot_axis == 0 else mask[None, :, None]
 
     # -- slot management -----------------------------------------------------
 
@@ -53,9 +63,10 @@ class StreamingSession:
         if not self._free:
             raise RuntimeError(f"all {self.capacity} stream slots in use")
         slot = self._free.pop(0)
-        keep = torch.ones((self.capacity, 1), dtype=torch.bool,
+        keep = torch.ones(self.capacity, dtype=torch.bool,
                           device=self.model.device)
         keep[slot] = False
+        keep = self._slot_mask(keep)
         self._gru = tuple(torch.where(keep, c, torch.zeros_like(c))
                           for c in self._gru)
         self._fresh[slot] = True
@@ -120,7 +131,8 @@ class StreamingSession:
                                   include_first_pair=True,
                                   first_pair_invalid=fresh)
         # Commit state only for the slots that were fed.
-        self._gru = tuple(torch.where(fed_mask[:, None], n, o)
+        fed_slots = self._slot_mask(fed_mask)
+        self._gru = tuple(torch.where(fed_slots, n, o)
                           for n, o in zip(new_gru, self._gru))
         self._context = torch.where(fed_mask[:, None, None, None, None],
                                     x[:, -1:], self._context)

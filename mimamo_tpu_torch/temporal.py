@@ -3,13 +3,15 @@
 
 Counterpart of ``MicroCNN``, ``TwoStreamRNN`` and ``init_carries`` in
 ``mimamo_tpu/temporal.py``: clip mode (both GRUs start from zeros) and
-streaming (the previous chunk's carries come in, the new ones go out).
-Parameter names are
-the canonical two-stream schema of docs/WEIGHTS.md (``gru_micro.*``,
-``micro_cnn.conv1.weight``, ``macro_proj.*``, ...). The JAX package's GRU is
-a hand-rolled torch-convention cell (gate order r, z, n; reset gate applied
-to the hidden projection including its bias) under ``lax.scan``, so its
-weights load into ``nn.GRU`` verbatim; its ``_dual_gru`` interleaving of the
+streaming (the previous chunk's carries come in, the new ones go out),
+with the JAX package's variants: the stream ablations, stacked GRU layers
+and snippet pooling. Parameter names are the canonical two-stream schema
+of docs/WEIGHTS.md (``gru_micro.*``, ``micro_cnn.conv1.weight``,
+``macro_proj.*``, ...). The JAX package's GRU is a hand-rolled
+torch-convention cell (gate order r, z, n; reset gate applied to the
+hidden projection including its bias) under ``lax.scan``, so its weights
+load into ``nn.GRU`` verbatim (a stack's layer i > 0 as
+``weight_ih_l<i>`` and so on); its ``_dual_gru`` interleaving of the
 two recurrences is a TPU scheduling choice, and two GRUs back to back
 compute the same thing. Everything here runs in fp32; the runner keeps
 TF32 off so the convs and the GRU stay IEEE on the card.
@@ -27,7 +29,8 @@ from .batchnorm import BatchNorm2d
 from .config import TemporalSpec
 
 
-Carries = Tuple[torch.Tensor, torch.Tensor]     # (h_micro, h_macro), [B, H]
+# (h_micro, h_macro): [B, H] each, or [L, B, H] with L stacked GRU layers
+Carries = Tuple[torch.Tensor, torch.Tensor]
 
 
 class MicroCNN(nn.Module):
@@ -55,24 +58,58 @@ class MicroCNN(nn.Module):
 
 
 class TwoStreamRNN(nn.Module):
-    """Micro + macro streams -> two GRUs -> fused (valence, arousal)."""
+    """Micro + macro streams -> two GRUs -> fused (valence, arousal).
+
+    The variants of ``TemporalSpec`` as the JAX package runs them:
+    ``streams="micro"`` / ``"macro"`` builds only the active stream's
+    modules (its ``state_dict`` has no tensor of the other, and ``fusion``
+    takes H inputs, not 2H); ``gru_layers = L`` stacks L layers in each
+    ``nn.GRU``; ``snippet_len = w`` mean-pools each stream's per-frame
+    inputs over windows of w frames, steps the GRUs once per window and
+    repeats the outputs back to the frames."""
 
     def __init__(self, spec: TemporalSpec, num_phase: int, phase_size: int,
                  feature_dim: int):
         super().__init__()
         self.spec = spec
-        self.micro_cnn = MicroCNN(spec, num_phase, phase_size)
-        self.macro_proj = nn.Linear(feature_dim, spec.macro_embed_dim)
-        self.gru_micro = nn.GRU(spec.micro_embed_dim, spec.gru_hidden,
-                                batch_first=True)
-        self.gru_macro = nn.GRU(spec.macro_embed_dim, spec.gru_hidden,
-                                batch_first=True)
-        self.fusion = nn.Linear(2 * spec.gru_hidden, spec.fusion_hidden)
+        if spec.use_micro:
+            self.micro_cnn = MicroCNN(spec, num_phase, phase_size)
+            self.gru_micro = nn.GRU(spec.micro_embed_dim, spec.gru_hidden,
+                                    num_layers=spec.gru_layers,
+                                    batch_first=True)
+        if spec.use_macro:
+            self.macro_proj = nn.Linear(feature_dim, spec.macro_embed_dim)
+            self.gru_macro = nn.GRU(spec.macro_embed_dim, spec.gru_hidden,
+                                    num_layers=spec.gru_layers,
+                                    batch_first=True)
+        streams = int(spec.use_micro) + int(spec.use_macro)
+        self.fusion = nn.Linear(streams * spec.gru_hidden,
+                                spec.fusion_hidden)
         self.head = nn.Linear(spec.fusion_hidden, spec.num_outputs)
 
-    def forward(self, phase_stacks: torch.Tensor, rgb_feats: torch.Tensor,
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, D] -> [B, T / w, D] means over snippets of w frames."""
+        w = self.spec.snippet_len
+        if w == 1:
+            return x
+        return x.reshape(x.shape[0], x.shape[1] // w, w, -1).mean(dim=2)
+
+    def _gru(self, gru: nn.GRU, xs: torch.Tensor,
+             carry: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One stream's GRU from a carry in ``init_carries``'s layout
+        ([B, H] for one layer, [L, B, H] for L): (outputs, new carry)."""
+        one = self.spec.gru_layers == 1
+        h0 = None if carry is None else (
+            carry[None] if one else carry).contiguous()
+        ys, h = gru(xs, h0)
+        return ys, (h[0] if one else h)
+
+    def forward(self, phase_stacks: Optional[torch.Tensor],
+                rgb_feats: Optional[torch.Tensor],
                 carries: Optional[Carries] = None,
-                first_pair_invalid: Optional[torch.Tensor] = None
+                first_pair_invalid: Optional[torch.Tensor] = None,
+                num_frames: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Carries]:
         """phase_stacks [B, T-1 | T, C, P, P] and rgb_feats [B, T, F] ->
         ([B, T, num_outputs], new carries).
@@ -80,37 +117,70 @@ class TwoStreamRNN(nn.Module):
         With T-1 pairs (clip mode) frame 0 has no predecessor and its micro
         embedding is zero; with T pairs (streaming: the caller prepended the
         previous chunk's last frame) every frame has one. ``carries`` are
-        the two GRUs' [B, H] hidden states from the previous chunk (zeros
-        when None). ``first_pair_invalid`` ([B] bool) zeroes step 0's micro
-        embedding of the rows it marks, so that a stream's first chunk
-        equals clip mode; it selects, so a non-finite embedding of a marked
-        row does not get through."""
-        b, t = rgb_feats.shape[:2]
-        tm1 = phase_stacks.shape[1]
-        micro = self.micro_cnn(phase_stacks.reshape(
-            (b * tm1,) + phase_stacks.shape[2:])).reshape(b, tm1, -1)
-        if tm1 == t - 1:
-            micro = F.pad(micro, (0, 0, 1, 0))
-        elif tm1 != t:
-            raise ValueError(f"phase stacks T-1={tm1} vs frames T={t}")
-        if first_pair_invalid is not None:
-            first = torch.where(first_pair_invalid[:, None],
-                                torch.zeros_like(micro[:, 0]), micro[:, 0])
-            micro = torch.cat([first[:, None], micro[:, 1:]], dim=1)
-        macro = F.relu(self.macro_proj(rgb_feats))
-        # nn.GRU wants [layers = 1, B, H]
-        h_micro, h_macro = (None, None) if carries is None else (
-            c[None].contiguous() for c in carries)
-        ys_micro, h_micro = self.gru_micro(micro, h_micro)
-        ys_macro, h_macro = self.gru_macro(macro, h_macro)
-        fused = F.relu(self.fusion(torch.cat([ys_micro, ys_macro], dim=-1)))
+        the two GRUs' hidden states from the previous chunk (zeros when
+        None), in :func:`init_carries`' layout. ``first_pair_invalid``
+        ([B] bool) zeroes step 0's micro embedding of the rows it marks, so
+        that a stream's first chunk equals clip mode; it selects, so a
+        non-finite embedding of a marked row does not get through.
+
+        The inactive stream's input may be None; its carry passes through
+        unchanged, or as zeros when there is none. ``num_frames`` gives T
+        to a micro-only model (no ``rgb_feats`` to read it from); without
+        it T is the number of pairs plus one."""
+        spec = self.spec
+        if spec.use_micro and phase_stacks is None:
+            raise ValueError(f"streams={spec.streams!r} needs phase_stacks")
+        if spec.use_macro and rgb_feats is None:
+            raise ValueError(f"streams={spec.streams!r} needs rgb_feats")
+        if spec.use_macro:
+            b, t = rgb_feats.shape[:2]
+        else:
+            b = phase_stacks.shape[0]
+            t = (num_frames if num_frames is not None
+                 else phase_stacks.shape[1] + 1)
+        if t % spec.snippet_len:
+            raise ValueError(f"clip length {t} not divisible by "
+                             f"snippet_len {spec.snippet_len}")
+        h_micro, h_macro = (None, None) if carries is None else carries
+        ys = []
+        if spec.use_micro:
+            tm1 = phase_stacks.shape[1]
+            micro = self.micro_cnn(phase_stacks.reshape(
+                (b * tm1,) + phase_stacks.shape[2:])).reshape(b, tm1, -1)
+            if tm1 == t - 1:
+                micro = F.pad(micro, (0, 0, 1, 0))
+            elif tm1 != t:
+                raise ValueError(f"phase stacks T-1={tm1} vs frames T={t}")
+            if first_pair_invalid is not None:
+                first = torch.where(first_pair_invalid[:, None],
+                                    torch.zeros_like(micro[:, 0]),
+                                    micro[:, 0])
+                micro = torch.cat([first[:, None], micro[:, 1:]], dim=1)
+            y, h_micro = self._gru(self.gru_micro, self._pool(micro),
+                                   h_micro)
+            ys.append(y)
+        if spec.use_macro:
+            macro = F.relu(self.macro_proj(rgb_feats))
+            y, h_macro = self._gru(self.gru_macro, self._pool(macro),
+                                   h_macro)
+            ys.append(y)
+        fused = F.relu(self.fusion(torch.cat(ys, dim=-1)))
         out = self.head(fused)
-        if self.spec.output_activation == "tanh":
+        if spec.output_activation == "tanh":
             out = torch.tanh(out)
-        return out, (h_micro[0], h_macro[0])
+        if spec.snippet_len > 1:
+            out = out.repeat_interleave(spec.snippet_len, dim=1)
+        if h_micro is None or h_macro is None:
+            zeros = init_carries(spec, b, out.device)
+            h_micro = zeros[0] if h_micro is None else h_micro
+            h_macro = zeros[1] if h_macro is None else h_macro
+        return out, (h_micro, h_macro)
 
 
 def init_carries(spec: TemporalSpec, batch: int, device=None) -> Carries:
-    """Zero carries of both GRUs, [B, H] float32 each."""
-    return (torch.zeros((batch, spec.gru_hidden), device=device),
-            torch.zeros((batch, spec.gru_hidden), device=device))
+    """Zero carries of both GRUs, float32: [B, H] each for one GRU layer,
+    [L, B, H] (``nn.GRU``'s ``h_n`` layout) for L stacked layers."""
+    shape = ((batch, spec.gru_hidden) if spec.gru_layers == 1
+             else (spec.gru_layers, batch, spec.gru_hidden))
+    return (torch.zeros(shape, device=device),
+            torch.zeros(shape, device=device))

@@ -10,31 +10,27 @@ temporal model. ``convert --verify`` forwards the converted model on the
 same inputs, so a wrong key mapping or transpose shows as a large |delta|,
 not as a silent accuracy loss later. They run on the CPU in fp32.
 
-Only the variants the port runs are built: ``stride_in_1x1=True``,
-``streams="both"``, ``gru_layers=1``, ``snippet_len=1``; the others raise
-naming ROADMAP.md A16.
+The backbone is built for ``stride_in_1x1=True`` only (the variant the
+port's kernels compute; ``False`` raises naming ROADMAP.md A16b); the
+temporal model for every ``TemporalSpec`` variant: the stream ablations,
+stacked GRU layers and snippet pooling.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 
-def _variants_ported(stride_in_1x1: bool = True, spec=None) -> None:
-    wanted = [("stride_in_1x1", stride_in_1x1, True)]
-    if spec is not None:
-        wanted += [(name, getattr(spec, name), want) for name, want in
-                   (("streams", "both"), ("gru_layers", 1),
-                    ("snippet_len", 1))]
-    for name, got, want in wanted:
-        if got != want:
-            raise NotImplementedError(
-                f"{name}={got!r}: the reference forwards are built for "
-                f"{want!r} only, the variant the port runs (ROADMAP.md A16)")
+def _variants_ported(stride_in_1x1: bool = True) -> None:
+    if not stride_in_1x1:
+        raise NotImplementedError(
+            "stride_in_1x1=False: the reference backbone is built for the "
+            "Caffe stride placement only, the one the port runs "
+            "(ROADMAP.md A16b)")
 
 
 def _tensors(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -129,61 +125,91 @@ def backbone_forward(state_dict: Dict[str, np.ndarray],
 # -- two-stream temporal model (canonical .pth schema) -----------------------
 
 def temporal_forward(state_dict: Dict[str, np.ndarray], spec,
-                     phase_stacks: np.ndarray, rgb_feats: np.ndarray
-                     ) -> np.ndarray:
+                     phase_stacks: Optional[np.ndarray],
+                     rgb_feats: Optional[np.ndarray],
+                     num_frames: Optional[int] = None) -> np.ndarray:
     """Forward SOURCE two-stream tensors (the canonical schema of
     ``checkpoints.load_temporal_state_dict``) in clip mode: phase stacks
-    [B, T-1, C, P, P] (NCHW maps) and appearance features [B, T, F] ->
-    [B, T, num_outputs] numpy predictions."""
-    _variants_ported(spec=spec)
+    [B, T-1, C, P, P] (NCHW maps; None for a macro-only spec) and
+    appearance features [B, T, F] (None for a micro-only spec) ->
+    [B, T, num_outputs] numpy predictions. ``num_frames`` gives T to a
+    micro-only spec (default: pairs + 1). ``spec.snippet_len`` w > 1
+    mean-pools each stream over windows of w frames and repeats the
+    outputs back; ``spec.gru_layers`` stacks the GRUs."""
     sd = _tensors(state_dict)
-    b, t = rgb_feats.shape[:2]
-    tm1, c_in, p = (phase_stacks.shape[1], phase_stacks.shape[2],
-                    phase_stacks.shape[-1])
-    if tm1 != t - 1:
-        raise ValueError(f"phase stacks T-1={tm1} vs frames T={t}")
+    use_micro = spec.streams in ("both", "micro")
+    use_macro = spec.streams in ("both", "macro")
+    if use_macro:
+        b, t = rgb_feats.shape[:2]
+    else:
+        b = phase_stacks.shape[0]
+        t = (num_frames if num_frames is not None
+             else phase_stacks.shape[1] + 1)
+    w = spec.snippet_len
+    if t % w:
+        raise ValueError(f"clip length {t} not divisible by snippet_len "
+                         f"{w}")
 
     def take(prefix: str, module: nn.Module) -> nn.Module:
         sub = {k[len(prefix) + 1:]: v for k, v in sd.items()
                if k.startswith(prefix + ".")}
         return _load(module, sub, prefix)
 
+    def pool(x: torch.Tensor) -> torch.Tensor:      # [B, T, D] -> [B, T/w, D]
+        return x if w == 1 else x.reshape(b, t // w, w, -1).mean(dim=2)
+
+    def gru(prefix: str, in_dim: int) -> nn.Module:
+        return take(prefix, nn.GRU(in_dim, spec.gru_hidden,
+                                   num_layers=spec.gru_layers,
+                                   batch_first=True))
+
+    outs = []
     with torch.no_grad():
-        layers = []
-        for feats in spec.micro_cnn_features:
-            layers += [nn.Conv2d(c_in, feats, 3, padding=1, bias=False),
-                       nn.BatchNorm2d(feats), nn.ReLU(), nn.MaxPool2d(2, 2)]
-            c_in, p = feats, p // 2
-        # conv<i> / bn<i> of the schema are Sequential entries 4(i-1), +1
-        cnn_sd = {}
-        for i in range(len(spec.micro_cnn_features)):
-            for src, dst in ((f"conv{i + 1}", 4 * i), (f"bn{i + 1}", 4 * i + 1)):
-                pref = f"micro_cnn.{src}."
-                cnn_sd.update({f"{dst}.{k[len(pref):]}": v
-                               for k, v in sd.items() if k.startswith(pref)})
-        cnn = _load(nn.Sequential(*layers), cnn_sd, "micro_cnn")
-        fc = take("micro_cnn.fc",
-                  nn.Linear(c_in * p * p, spec.micro_embed_dim))
-        x = torch.from_numpy(np.ascontiguousarray(
-            phase_stacks.reshape((b * tm1,) + phase_stacks.shape[2:]),
-            np.float32))
-        micro = fc(cnn(x).flatten(1)).reshape(b, tm1, -1)
-        micro = torch.cat([torch.zeros(b, 1, micro.shape[-1]), micro], dim=1)
-        gru_m = take("gru_micro", nn.GRU(spec.micro_embed_dim,
-                                         spec.gru_hidden, batch_first=True))
-        ys_micro, _ = gru_m(micro)
-        proj = take("macro_proj",
-                    nn.Linear(rgb_feats.shape[-1], spec.macro_embed_dim))
-        macro = torch.relu(proj(torch.from_numpy(
-            np.ascontiguousarray(rgb_feats, np.float32))))
-        gru_a = take("gru_macro", nn.GRU(spec.macro_embed_dim,
-                                         spec.gru_hidden, batch_first=True))
-        ys_macro, _ = gru_a(macro)
-        fused = torch.cat([ys_micro, ys_macro], dim=-1)
+        if use_micro:
+            tm1, c_in, p = (phase_stacks.shape[1], phase_stacks.shape[2],
+                            phase_stacks.shape[-1])
+            if tm1 != t - 1:
+                raise ValueError(f"phase stacks T-1={tm1} vs frames T={t}")
+            layers = []
+            for feats in spec.micro_cnn_features:
+                layers += [nn.Conv2d(c_in, feats, 3, padding=1, bias=False),
+                           nn.BatchNorm2d(feats), nn.ReLU(),
+                           nn.MaxPool2d(2, 2)]
+                c_in, p = feats, p // 2
+            # conv<i> / bn<i> of the schema are Sequential entries 4(i-1), +1
+            cnn_sd = {}
+            for i in range(len(spec.micro_cnn_features)):
+                for src, dst in ((f"conv{i + 1}", 4 * i),
+                                 (f"bn{i + 1}", 4 * i + 1)):
+                    pref = f"micro_cnn.{src}."
+                    cnn_sd.update({f"{dst}.{k[len(pref):]}": v
+                                   for k, v in sd.items()
+                                   if k.startswith(pref)})
+            cnn = _load(nn.Sequential(*layers), cnn_sd, "micro_cnn")
+            fc = take("micro_cnn.fc",
+                      nn.Linear(c_in * p * p, spec.micro_embed_dim))
+            x = torch.from_numpy(np.ascontiguousarray(
+                phase_stacks.reshape((b * tm1,) + phase_stacks.shape[2:]),
+                np.float32))
+            micro = fc(cnn(x).flatten(1)).reshape(b, tm1, -1)
+            micro = torch.cat([torch.zeros(b, 1, micro.shape[-1]), micro],
+                              dim=1)
+            ys, _ = gru("gru_micro", spec.micro_embed_dim)(pool(micro))
+            outs.append(ys)
+        if use_macro:
+            proj = take("macro_proj",
+                        nn.Linear(rgb_feats.shape[-1], spec.macro_embed_dim))
+            macro = torch.relu(proj(torch.from_numpy(
+                np.ascontiguousarray(rgb_feats, np.float32))))
+            ys, _ = gru("gru_macro", spec.macro_embed_dim)(pool(macro))
+            outs.append(ys)
+        fused = torch.cat(outs, dim=-1)
         fusion = take("fusion", nn.Linear(fused.shape[-1],
                                           spec.fusion_hidden))
         head = take("head", nn.Linear(spec.fusion_hidden, spec.num_outputs))
         out = head(torch.relu(fusion(fused)))
         if spec.output_activation == "tanh":
             out = torch.tanh(out)
+        if w > 1:
+            out = out.repeat_interleave(w, dim=1)
     return out.numpy()

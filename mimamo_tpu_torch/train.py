@@ -7,10 +7,12 @@ Counterpart of ``mimamo_tpu/train.py`` (``make_optimizer``,
 
 The step follows the JAX package's: clips cast to float32 before any math;
 per-clip flip and brightness deterministic in (seed, step); the micro
-stream's phase stacks from the phase kernel; the appearance embeddings
-from cached features, from the folded inference backbone under
+stream's phase stacks from the phase kernel (none for a macro-only
+model); the appearance embeddings (none for a micro-only model) from
+cached features, from the folded inference backbone under
 ``freeze_backbone`` (stem and layer2 kernels, no gradient: JAX's
-``stop_gradient``), or from the unfolded backbone in training mode
+``stop_gradient``; ``embed_frames``, so ``appearance_stride`` applies),
+or, ignoring the stride, from the unfolded backbone in training mode
 (``ResNet50.forward``, plain autograd, activations recomputed under
 ``remat_backbone``); the temporal model in training mode (batch
 statistics, Flax's running-stat update); the CCC loss per clip over time
@@ -245,18 +247,22 @@ def make_train_step(model: Mimamo) -> Callable:
                     "batch['features'] or disable augment/"
                     "brightness_jitter)")
             clips = augment_clips(clips, spec, state.step)
-        if "features" in batch and not freeze:
+        if "features" in batch and not freeze and cfg.temporal.use_macro:
             raise ValueError(
                 "cached features cannot be used with freeze_backbone=False "
                 "(fine-tuning must run the real backbone)")
-        with torch.no_grad():
-            phase_stacks = model._micro_motion(
-                preprocess.to_grayscale(clips))
+        phase_stacks = None
+        if cfg.temporal.use_micro:
+            with torch.no_grad():
+                phase_stacks = model._micro_motion(
+                    preprocess.to_grayscale(clips))
         b, t = clips.shape[:2]
         # training mode until after the backward pass: a rematerialized
         # backbone runs its forward again inside it
         with _training(*trained):
-            if "features" in batch:
+            if not cfg.temporal.use_macro:
+                emb = None
+            elif "features" in batch:
                 emb = _as_tensor(batch["features"], dev)
             elif freeze:
                 with torch.no_grad():
@@ -266,7 +272,7 @@ def make_train_step(model: Mimamo) -> Callable:
                     clips.reshape((b * t,) + clips.shape[2:]), cfg.backbone)
                 emb, _ = model.backbone(imgs, remat=spec.remat_backbone)
                 emb = emb.reshape(b, t, -1)
-            out, _ = model.temporal(phase_stacks, emb)
+            out, _ = model.temporal(phase_stacks, emb, num_frames=t)
             loss, ccc_vec = _loss_and_metrics(
                 out, _as_tensor(batch["labels"], dev),
                 _as_tensor(batch["mask"], dev), spec)

@@ -65,31 +65,45 @@ def backbone_from_jax(variables: Mapping[str, Any]) -> StateDict:
     return sd
 
 
+_GRU_NAMES = (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+              ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
+
+
 def temporal_from_jax(variables: Mapping[str, Any]) -> StateDict:
-    """JAX ``TwoStreamRNN`` variables (two streams, one GRU layer) -> the
-    port's ``TwoStreamRNN`` ``state_dict``."""
-    tp, ts = variables["params"], variables["batch_stats"]
-    cnn, cnn_stats = tp["micro_cnn"], ts["micro_cnn"]
+    """JAX ``TwoStreamRNN`` variables -> the port's ``TwoStreamRNN``
+    ``state_dict``, for every variant: a stream the config leaves out has
+    no params on either side, and a stacked GRU's layer i > 0
+    (``l<i>_w_ih`` ... in JAX) becomes ``weight_ih_l<i>`` ..."""
+    tp = variables["params"]
     sd: StateDict = {}
-    depth = sum(1 for k in cnn if k.startswith("conv"))
-    for i in range(1, depth + 1):
-        sd[f"micro_cnn.conv{i}.weight"] = _conv(cnn[f"conv{i}"]["kernel"])
-        _bn(sd, f"micro_cnn.bn{i}", cnn[f"bn{i}"], cnn_stats[f"bn{i}"])
-    kern = np.asarray(cnn["fc"]["kernel"])                   # [h*w*c, out]
-    c = np.asarray(cnn[f"conv{depth}"]["kernel"]).shape[-1]
-    side = math.isqrt(kern.shape[0] // c)
-    sd["micro_cnn.fc.weight"] = _t(
-        kern.T.reshape(-1, side, side, c).transpose(0, 3, 1, 2)
-        .reshape(kern.shape[1], -1))
-    sd["micro_cnn.fc.bias"] = _t(cnn["fc"]["bias"])
+    if "micro_cnn" in tp:
+        cnn, cnn_stats = tp["micro_cnn"], variables["batch_stats"][
+            "micro_cnn"]
+        depth = sum(1 for k in cnn if k.startswith("conv"))
+        for i in range(1, depth + 1):
+            sd[f"micro_cnn.conv{i}.weight"] = _conv(cnn[f"conv{i}"]["kernel"])
+            _bn(sd, f"micro_cnn.bn{i}", cnn[f"bn{i}"], cnn_stats[f"bn{i}"])
+        kern = np.asarray(cnn["fc"]["kernel"])               # [h*w*c, out]
+        c = np.asarray(cnn[f"conv{depth}"]["kernel"]).shape[-1]
+        side = math.isqrt(kern.shape[0] // c)
+        sd["micro_cnn.fc.weight"] = _t(
+            kern.T.reshape(-1, side, side, c).transpose(0, 3, 1, 2)
+            .reshape(kern.shape[1], -1))
+        sd["micro_cnn.fc.bias"] = _t(cnn["fc"]["bias"])
     for name in ("macro_proj", "fusion", "head"):
-        _dense(sd, name, tp[name])
+        if name in tp:
+            _dense(sd, name, tp[name])
     for stream in ("gru_micro", "gru_macro"):
-        for jax_name, torch_name in (("w_ih", "weight_ih_l0"),
-                                     ("w_hh", "weight_hh_l0"),
-                                     ("b_ih", "bias_ih_l0"),
-                                     ("b_hh", "bias_hh_l0")):
-            sd[f"{stream}.{torch_name}"] = _t(tp[stream][jax_name])
+        if stream not in tp:
+            continue
+        gru = tp[stream]
+        layers = 1 + sum(k.startswith("l") and k.endswith("_w_ih")
+                         for k in gru)
+        for li in range(layers):
+            prefix = "" if li == 0 else f"l{li}_"
+            for jax_name, torch_name in _GRU_NAMES:
+                sd[f"{stream}.{torch_name}_l{li}"] = _t(
+                    gru[prefix + jax_name])
     return sd
 
 

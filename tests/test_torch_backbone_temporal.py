@@ -95,11 +95,22 @@ def test_folded_resnet_matches_jax_f32(resnet_pair, order):
 
 
 def test_folded_resnet_rejects_non_2x_crops(resnet_pair):
+    """The stem route is chosen at construction from the crop size: a
+    backbone built for 32^2 crops (the exact 2x of 64, the stem kernel)
+    rejects 64^2 crops, and one built for 64^2 crops takes the resize route
+    instead of the stem kernel."""
     _spec, _variables, model = resnet_pair
     folded = tbackbone.FoldedResNet50(tbackbone.fold_batchnorm(model),
                                       BackboneSpec(input_size=64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert folded.run_stem == folded._stem_kernel
+    with pytest.raises(ValueError, match="built for"):
         folded(torch.zeros((1, 64, 64, 3)))
+    resized = tbackbone.FoldedResNet50(tbackbone.fold_batchnorm(model),
+                                       BackboneSpec(input_size=64), (64, 64))
+    assert resized.run_stem == resized._stem_resized
+    with torch.no_grad():
+        emb, _ = resized(torch.zeros((1, 64, 64, 3)))
+    assert emb.shape == (1, 2048) and torch.isfinite(emb).all()
 
 
 SMALL_TEMPORAL = dict(micro_cnn_features=(8, 16), micro_embed_dim=16,
@@ -135,9 +146,18 @@ def test_two_stream_rnn_matches_jax_f32(activation):
 
 
 def test_unported_temporal_options_raise():
+    """The stream ablations, stacked GRUs and snippet pooling are ported
+    (tests/test_torch_variants.py); only values outside their domain
+    raise, as in the JAX package."""
     for kw in ({"streams": "micro"}, {"gru_layers": 2}, {"snippet_len": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        assert TemporalSpec(**kw)
+    for kw, field in (({"streams": "left"}, "streams"),
+                      ({"gru_layers": 0}, "gru_layers"),
+                      ({"snippet_len": 0}, "snippet_len")):
+        with pytest.raises(ValueError, match=field):
             TemporalSpec(**kw)
+    with pytest.raises(ValueError, match="appearance_stride"):
+        BackboneSpec(appearance_stride=0)
 
 
 def test_init_variables_is_seeded():

@@ -4,8 +4,9 @@ JSON line and output files (``predict`` with a video and boxes, with
 crops and with emotions; ``extract``; ``eval`` batched over streams;
 ``predict-corpus``) at atol 1e-5; ``train`` against ``train.fit`` (which
 tests/test_torch_train.py holds against the JAX step). Also: argument
-coherence, the model-variant flags that exit naming ROADMAP.md A16, the
-TPU and multi-process flags that are not registered, and that every
+coherence, the model-variant flags (each builds its variant and runs
+through ``predict`` and ``serve``), the TPU and multi-process flags that
+are not registered, and that every
 subcommand raises without a card unless ``--cpu`` is given.
 
 The weights are the JAX package's, converted with
@@ -14,6 +15,7 @@ The weights are the JAX package's, converted with
 flags."""
 
 import dataclasses
+import io
 import json
 import os
 import sys
@@ -270,14 +272,60 @@ def test_argument_coherence_exits(argv, tmp_path, monkeypatch):
     assert e.value.code not in (0, None)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--streams", "micro"], ["--snippet-len", "4"], ["--gru-layers", "2"],
-    ["--appearance-stride", "2"], ["--backbone-size", str(S)]])
+# a smaller config for the variant runs: crop 16, backbone 32, clips of 8
+VARIANT_FLAGS = ["--crop-size", "16", "--backbone-size", "32",
+                 "--pyramid-height", "2", "--orientations", "2",
+                 "--phase-size", "8", "--clip-len", "8", "--stride", "4",
+                 "--cpu"]
+
+
+@pytest.mark.parametrize("flags, field, want", [
+    (["--streams", "micro"], "temporal.streams", "micro"),
+    (["--snippet-len", "4"], "temporal.snippet_len", 4),
+    (["--gru-layers", "2"], "temporal.gru_layers", 2),
+    (["--appearance-stride", "2"], "backbone.appearance_stride", 2),
+    (["--backbone-size", "16"], "backbone.input_size", 16)],
+    ids=["streams", "snippet-len", "gru-layers", "appearance-stride",
+         "backbone-size"])
 @pytest.mark.parametrize("sub", ["predict", "serve"])
-def test_model_variant_flags_name_a16(flags, sub):
-    argv = [sub] + (["--crops", "c.npy"] if sub == "predict" else [])
-    with pytest.raises(SystemExit, match="ROADMAP.md A16"):
-        cli.main(argv + FLAGS + flags)
+def test_model_variant_flags_name_a16(flags, field, want, sub, tmp_path,
+                                      capsys, monkeypatch):
+    """Each model-variant flag builds its variant (it no longer exits
+    naming ROADMAP.md A16) and runs through ``predict --crops`` and
+    ``serve`` (a stream opened, fed one chunk, closed) on the CPU: finite
+    values, one per frame."""
+    built = []
+    config = cli._config
+    monkeypatch.setattr(cli, "_config",
+                        lambda args: built.append(config(args)) or built[-1])
+    crops = np.random.default_rng(3).integers(0, 256, (12, 16, 16, 3),
+                                              dtype=np.uint8)
+    path = str(tmp_path / "c.npy")
+    np.save(path, crops)
+    if sub == "predict":
+        rc = cli.main(["predict", "--crops", path] + VARIANT_FLAGS + flags)
+        row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0 and row["frames"] == 12
+        assert np.isfinite([row["valence_mean"], row["arousal_mean"]]).all()
+    else:
+        np.save(str(tmp_path / "chunk.npy"), crops[:8])
+        reqs = [{"cmd": "stream_open", "stream": "s"},
+                {"cmd": "stream_feed", "stream": "s",
+                 "crops": str(tmp_path / "chunk.npy")},
+                {"cmd": "stream_close", "stream": "s"},
+                {"cmd": "shutdown"}]
+        monkeypatch.setattr(sys, "stdin", io.StringIO(
+            "".join(json.dumps(r) + "\n" for r in reqs)))
+        rc = cli.main(["serve", "--capacity", "2", "--chunk", "8",
+                       "--no-warmup"] + VARIANT_FLAGS + flags)
+        lines = [json.loads(x)
+                 for x in capsys.readouterr().out.strip().splitlines()]
+        assert rc == 0 and lines[0]["ready"]
+        assert all(r["ok"] for r in lines[1:]), lines
+        values = np.asarray(lines[2]["values"])
+        assert values.shape == (8, 2) and np.isfinite(values).all()
+    section, name = field.split(".")
+    assert getattr(getattr(built[0], section), name) == want
 
 
 @pytest.mark.parametrize("argv", [

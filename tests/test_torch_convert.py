@@ -438,7 +438,9 @@ def test_torch_ref_matches_the_jax_package_twins(src):
 
 
 def test_torch_ref_refuses_variants_not_ported(src):
-    with pytest.raises(NotImplementedError, match="A16"):
+    """The one variant the reference forwards are not built for:
+    ``stride_in_1x1=False`` (ROADMAP.md A16b)."""
+    with pytest.raises(NotImplementedError, match="A16b"):
         torch_ref.backbone_forward(
             backbone.normalize_dag_state_dict(src["bb"]),
             np.zeros((1, 16, 16, 3), np.float32), stride_in_1x1=False)

@@ -72,8 +72,8 @@ def _stem_by_tiles(crops, w2, bias, mean, plan):
     its conv columns c0 .. c0 + nc - 1 (from the upscaled columns they
     read, zero outside the crop) and pools its pooled columns from them."""
     s = crops.shape[1]
-    u = F.pad(for_backbone(crops, tc.BackboneSpec()).permute(0, 3, 1, 2),
-              (3, 3, 3, 3))
+    u = F.pad(for_backbone(crops, tc.BackboneSpec(input_size=2 * s)).permute(
+        0, 3, 1, 2), (3, 3, 3, 3))
     k = w2.float().reshape(7, 7, 3, 64).permute(3, 2, 0, 1)
     tiles = []
     for q0, q1, c0, nc in plan:
