@@ -124,10 +124,27 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      the outputs are reported and the variant's own path is gated);
      layer2 against its plain
      version on the 14 x 14 grid of the 112 backbone input;
- 16. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
+ 16. ``parallel``: data parallelism over ``torch.distributed``. A world of
+     one over NCCL on the card: ``cli train --data-parallel --coordinator
+     127.0.0.1:<port> --num-processes 1 --process-id 0`` on a seeded
+     synthetic Aff-Wild2 corpus at the default fp32 config against plain
+     ``cli train`` (rows and checkpoint within 1e-6); ``predict_batch`` of 7
+     clips against ``predict_clips`` in bf16 and fp32 (within 1e-6), the
+     launches of one train step and one ``predict_batch`` on the rank, and
+     the step and ``predict_batch`` times at a world of one beside the plain
+     ones. Two ranks sharing the card over gloo: ``python -m
+     mimamo_tpu_torch.dryrun --world 2`` (both ranks finish with identical
+     parameters, each step's loss within 1e-5 of a world-one step over the
+     same global batch, every check of the dry run within its bound),
+     ``cli eval --data-parallel`` on 2 ranks against one process (within
+     1e-6) and ``cli predict-corpus --data-parallel`` on 2 ranks over the
+     ``serve`` phase's 3 videos (disjoint videos, a manifest each; the
+     CSVs of one process within 1e-6);
+ 17. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
      gate's bound under ``tol_max_rel`` or ``tol_abs``, the launch counts of
-     each path, each variant's under ``launches_variant_<name>``) and, last,
-     the device line.
+     each path, each variant's under ``launches_variant_<name>``, a rank's
+     under ``launches_parallel_train`` and ``launches_parallel_predict_batch``)
+     and, last, the device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
 of the JAX package.
@@ -136,6 +153,7 @@ of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import statistics
@@ -149,8 +167,9 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from mimamo_tpu_torch import (StreamingSession, api, checkpoints, phase,
-                              preprocess, pyramid, train, weights)
+from mimamo_tpu_torch import (StreamingSession, api, checkpoints, dryrun,
+                              parallel, phase, preprocess, pyramid, train,
+                              weights)
 from mimamo_tpu_torch.bench import layer1_probe, layer2_probe
 from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
                                             PEAK_BYTES_PER_S,
@@ -2397,6 +2416,246 @@ def check_convert(line: str) -> dict:
     return report
 
 
+# -- data parallelism ---------------------------------------------------------
+
+# A world of one against the plain path (the same computation: every
+# collective reduces to the local path), and eval on 2 ranks against one
+# process (each video alone in its stream on both sides; moment sums
+# against the host CCC).
+PARALLEL_ATOL = 1e-6
+PARALLEL_LOSS_ATOL = 1e-5    # the 2-rank dry run's step against a world of 1
+PARALLEL_B = 7               # predict_batch's clips (padded to the world)
+PARALLEL_TIMEOUT = 300       # the phase's subprocesses, seconds
+
+
+def spawn(argv: list, tag: str, tmp: str) -> tuple:
+    """``python argv`` from the repo's root, its stderr into a file."""
+    err = open(os.path.join(tmp, tag + ".err"), "w+")
+    proc = subprocess.Popen([sys.executable] + argv, cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=err, text=True,
+                            env=dict(os.environ, PYTHONPATH=REPO))
+    return proc, err
+
+
+def finish(procs: list) -> list:
+    """(exit code, JSON lines, stderr's tail) of each ``spawn``; every
+    process still running at the limit is killed."""
+    deadline = time.monotonic() + PARALLEL_TIMEOUT
+    results = []
+    try:
+        for proc, err in procs:
+            out, _ = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+            err.seek(0)
+            results.append((proc.returncode,
+                            [json.loads(x) for x in out.splitlines()
+                             if x.startswith("{")], err.read()[-3000:]))
+    finally:
+        for proc, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+    return results
+
+
+def manifest_rows(root: str, pattern: str) -> list:
+    """(video name, status, frames) of every row of the manifests that
+    ``pattern`` matches under ``root``, sorted."""
+    rows = []
+    for path in glob.glob(os.path.join(root, pattern)):
+        with open(path) as f:
+            rows += [(os.path.basename(r["video"]), r["status"],
+                      r.get("frames")) for r in map(json.loads, f)]
+    return sorted(rows)
+
+
+def csv_diff(a: str, b: str) -> float:
+    """max |a - b| of two series CSVs (inf when one is missing)."""
+    if not (os.path.exists(a) and os.path.exists(b)):
+        return float("inf")
+    return float(np.abs(read_csv(a) - read_csv(b)).max())
+
+
+def wall_ms(fn, n: int) -> list:
+    """Host times (ms) of ``n`` calls, each ending in a synchronize."""
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def check_parallel(state: dict, line: str) -> dict:
+    """Data parallelism (docstring item 16). Returns the launches of one
+    train step (``"train"``) and of one ``predict_batch`` per dtype
+    (``"predict_batch"``) on a rank of a world of one."""
+    from mimamo_tpu_torch import cli
+    report = {"card": line}
+    rng = np.random.default_rng(SEED + 50)
+    with tempfile.TemporaryDirectory() as tmp:
+        media = slice_media(tmp)
+        root = media["aff"]
+        rows, saved = {}, {}
+        for name, flags in (("plain", []), ("world1", [
+                "--data-parallel", "--coordinator",
+                f"127.0.0.1:{dryrun.free_port()}", "--num-processes", "1",
+                "--process-id", "0"])):
+            ckpt = os.path.join(tmp, name)
+            rows[name] = run_cli(["train", "--dataset", "affwild2", "--root",
+                                  root, "--epochs", "1", "--ckpt", ckpt]
+                                 + flags)
+            saved[name] = checkpoints.load(ckpt)["model"]
+        report["cli_train_rows"] = rows
+        report["cli_train_world1_vs_plain"] = {
+            "rows_max_abs": max(
+                abs(a[k] - b[k]) for a, b in zip(rows["plain"],
+                                                 rows["world1"])
+                for k in a if k != "sec" and isinstance(a[k], float)),
+            "steps_equal": [r["steps"] for r in rows["plain"]]
+            == [r["steps"] for r in rows["world1"]],
+            "ckpt_max_abs": state_diff(saved["world1"], saved["plain"])}
+
+        # the group's cost at a world of one over NCCL, the plain path beside
+        group = parallel.initialize_distributed(
+            f"127.0.0.1:{dryrun.free_port()}", 1, 0)
+        with group:
+            probe = torch.ones(3, device=group.device)
+            torch.distributed.all_reduce(probe)
+            report["world1"] = {"backend": group.backend,
+                                "device": str(group.device),
+                                "all_reduce_ok": bool((probe == 1).all())}
+            batch = next(datasets.AffWild2Dataset(
+                root, clip=MimamoConfig().clip).batches(
+                    MimamoConfig().train.batch_size))
+            _, st_p, step_p = _train_model(state)
+            model_g, st_g, _ = _train_model(state)
+            step_g = train.make_train_step(model_g, group)
+            step_p(st_p, batch)                              # warm-up
+            step_g(st_g, batch)
+            _, train_launches = counted(lambda: step_g(st_g, batch),
+                                        expected_launches(fp32=True))
+            times = {"plain": [], "world1": []}
+            for name in ("plain", "world1", "world1", "plain"):
+                step, st = ((step_p, st_p) if name == "plain"
+                            else (step_g, st_g))
+                times[name] += step_ms(step, st, batch, 3)
+            report["train_step_ms"] = {k: statistics.median(v)
+                                       for k, v in times.items()}
+            del model_g, st_g, st_p
+            clips = rng.integers(0, 256, (PARALLEL_B, T, S, S, 3),
+                                 dtype=np.uint8)
+            pb_launches, report["predict_batch"] = {}, {}
+            for dtype in ("bfloat16", "float32"):
+                model = Mimamo(MimamoConfig(backbone=BackboneSpec(
+                    dtype=dtype)))
+                model.load_state_dict(state)
+                want = model.predict_clips(clips)
+                got, pb_launches[dtype] = counted(
+                    lambda: model.predict_batch(clips, group),
+                    expected_launches(fp32=dtype == "float32"))
+                times = {"plain": [], "world1": []}
+                for name in ("plain", "world1", "world1", "plain"):
+                    fn = ((lambda: model.predict_clips(clips))
+                          if name == "plain"
+                          else (lambda: model.predict_batch(clips, group)))
+                    times[name] += wall_ms(fn, 3)
+                report["predict_batch"][dtype] = {
+                    "shape": list(got.shape),
+                    "vs_predict_clips_max_abs": (got - want).abs().max()
+                    .item(),
+                    "ms": {k: statistics.median(v) for k, v in
+                           times.items()}}
+                del model
+        torch.cuda.empty_cache()
+
+        # two ranks sharing the card (gloo): the dry run, cli eval and
+        # cli predict-corpus (each clip alone in its batch, as in one
+        # process), one process of each command beside them
+        eval_argv = ["eval", "--dataset", "affwild2", "--root", root,
+                     "--ckpt", os.path.join(tmp, "plain"),
+                     "--batch-streams", "1"]
+        corpus_argv = ["predict-corpus", "--videos",
+                       os.path.join(media["dir"], "*.mp4"), "--ckpt",
+                       os.path.join(tmp, "plain"), "--no-native", "--batch",
+                       "1", "--out-dir"]
+
+        def two_ranks(argv: list, tag: str) -> list:
+            port = dryrun.free_port()
+            return [spawn(["-m", "mimamo_tpu_torch.cli"] + argv + CLI_FLAGS
+                          + ["--data-parallel", "--coordinator",
+                             f"127.0.0.1:{port}", "--num-processes", "2",
+                             "--process-id", str(r)], f"{tag}{r}", tmp)
+                    for r in (0, 1)]
+
+        t = time.perf_counter()
+        procs = ([spawn(["-m", "mimamo_tpu_torch.dryrun", "--world", "2"],
+                        "dryrun", tmp)] + two_ranks(eval_argv, "eval")
+                 + two_ranks(corpus_argv + [os.path.join(tmp, "two")],
+                             "corpus"))
+        try:
+            (one,) = run_cli(eval_argv)
+            (corpus_one,) = run_cli(corpus_argv + [os.path.join(tmp, "one")])
+        finally:
+            (dry_rc, dry_rows, dry_err), *ranks = finish(procs)
+        report["world2_s"] = time.perf_counter() - t
+        evals, corpus = ranks[:2], ranks[2:]
+
+        report["corpus_two_ranks"] = {
+            "summaries": [lines[-1] if lines else None
+                          for _, lines, _ in corpus],
+            "manifest": manifest_rows(tmp, "two/manifest.p*.jsonl"),
+            "one_process": corpus_one,
+            "one_process_manifest": manifest_rows(tmp, "one/manifest.jsonl"),
+            "csv_vs_one_max_abs": max(csv_diff(
+                os.path.join(tmp, "two", f"v{i}.csv"),
+                os.path.join(tmp, "one", f"v{i}.csv"))
+                for i in range(len(CORPUS_T)))}
+    report["dryrun"] = {"rc": dry_rc, "rows": dry_rows}
+    report["eval_one_process"] = one
+    report["eval_two_ranks"] = [lines[-1] if lines else None
+                                for _, lines, _ in evals]
+    report["eval_two_ranks_vs_one_max_abs"] = max(
+        (abs(r[k] - one[k]) if r else float("inf"))
+        for r in report["eval_two_ranks"]
+        for k in ("valence_ccc", "arousal_ccc", "mean_ccc"))
+    print(json.dumps({"parallel_phase": report}), flush=True)
+    w1 = report["cli_train_world1_vs_plain"]
+    co = report["corpus_two_ranks"]
+    ok = (report["world1"]["backend"] == "nccl"
+          and report["world1"]["all_reduce_ok"]
+          and w1["rows_max_abs"] <= PARALLEL_ATOL and w1["steps_equal"]
+          and w1["ckpt_max_abs"] <= PARALLEL_ATOL
+          and all(r["shape"] == [PARALLEL_B, T, 2]
+                  and r["vs_predict_clips_max_abs"] <= PARALLEL_ATOL
+                  for r in report["predict_batch"].values())
+          and dry_rc == 0 and len(dry_rows) == 2
+          and all(r["ok"] and r["backend"] == "gloo"
+                  and max(r["time_loss_world1_abs"],
+                          r["batch_loss_world1_abs"]) <= PARALLEL_LOSS_ATOL
+                  for r in dry_rows)
+          and len({r["params_sha256"] for r in dry_rows}) == 1
+          and all(rc == 0 for rc, _, _ in evals)
+          and all(r is not None and r["n_frames"] == one["n_frames"]
+                  for r in report["eval_two_ranks"])
+          and report["eval_two_ranks_vs_one_max_abs"] <= PARALLEL_ATOL
+          and all(rc == 0 for rc, _, _ in corpus)
+          and [r and r["videos"] for r in co["summaries"]] == [2, 1]
+          and co["manifest"] == co["one_process_manifest"]
+          and len(co["manifest"]) == len(CORPUS_T)
+          and co["one_process"]["videos"] == len(CORPUS_T)
+          and co["csv_vs_one_max_abs"] <= SLICE_ATOL)
+    if not ok:
+        for tag, (_, _, err) in zip(
+                ("dryrun", "eval0", "eval1", "corpus0", "corpus1"),
+                [(dry_rc, dry_rows, dry_err)] + ranks):
+            print(f"{tag} stderr: {err}", file=sys.stderr)
+        raise AssertionError(f"parallel phase: {report}")
+    return {"train": train_launches, "predict_batch": pb_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2540,6 +2799,16 @@ def main() -> int:
             rec[f"launches_variant_{name}"] = {
                 dtype: variants[name][dtype]["launches"][rec["name"]]
                 for dtype in ("bfloat16", "float32")}
+
+    # -- data parallelism -------------------------------------------------
+    t = time.perf_counter()
+    par = check_parallel(state, line)
+    print(json.dumps({"parallel_s": time.perf_counter() - t}), flush=True)
+    for rec in recs:
+        rec["launches_parallel_train"] = par["train"][rec["name"]]
+        rec["launches_parallel_predict_batch"] = {
+            dtype: par["predict_batch"][dtype][rec["name"]]
+            for dtype in ("bfloat16", "float32")}
     recs += crop_recs + variant_recs
     print(json.dumps({"smoke_s": time.perf_counter() - t_start}), flush=True)
 

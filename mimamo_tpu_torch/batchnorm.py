@@ -9,16 +9,26 @@ normalizes the same way but updates with the unbiased variance, so
 inference path and replaces only the update. Flax's ``momentum=0.9`` (the
 weight of the old value) is torch's ``momentum=0.1`` (the weight of the
 batch's).
+
+Data parallelism: under GSPMD the JAX train-mode BN reduces over the global
+batch. Inside :func:`synced` a layer takes its mean and biased variance
+from the channel sums and sums of squares all-reduced over a
+``parallel.DataGroup`` (with autograd, ``parallel.all_reduce``), as Flax
+computes them (E[x²] − E[x]², clipped at 0), and every rank updates the same
+running stats. ``nn.SyncBatchNorm`` is no substitute: it refuses CPU
+tensors, and its running update is not Flax's.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from . import parallel
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -28,20 +38,40 @@ class BatchNorm2d(nn.BatchNorm2d):
     element of the batch (masked frames included, as in JAX).
     ``update_stats`` is cleared by :func:`stats_frozen` while an
     activation checkpoint recomputes the forward, so that each step
-    updates the running stats once."""
+    updates the running stats once; ``group`` is set by :func:`synced`."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.update_stats = True
+        self.group: Optional[parallel.DataGroup] = None
+
+    def _global_stats(self, x: torch.Tensor):
+        """(mean, biased var) [C] over the batches of every rank."""
+        c = x.shape[1]
+        sums = parallel.all_reduce(torch.cat([
+            x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+            x.new_tensor([x.numel() // c])]), self.group)
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+        return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
+        mean = var = None
+        if self.group is None or self.group.world == 1:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True,
+                             0.0, self.eps)
+        else:
+            mean, var = self._global_stats(x)
+            scale = self.weight * torch.rsqrt(var + self.eps)
+            y = ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                 + self.bias[None, :, None, None])
         if self.update_stats:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                if mean is None:
+                    var, mean = torch.var_mean(x, dim=(0, 2, 3),
+                                               unbiased=False)
                 self.running_mean.mul_(1 - self.momentum).add_(
                     mean, alpha=self.momentum)
                 self.running_var.mul_(1 - self.momentum).add_(
@@ -62,3 +92,19 @@ def stats_frozen(module: nn.Module) -> Iterator[None]:
     finally:
         for m in layers:
             m.update_stats = True
+
+
+@contextlib.contextmanager
+def synced(module: nn.Module, group: Optional[parallel.DataGroup]
+           ) -> Iterator[None]:
+    """Inside, the :class:`BatchNorm2d` layers of ``module`` in training
+    mode take their statistics over the batches of all ranks of ``group``
+    (None or a world of one: the local batch)."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.group = None

@@ -27,14 +27,23 @@ Every subcommand that builds a model takes the JAX CLI's model variants:
 ``--snippet-len``, ``--appearance-stride`` and a ``--backbone-size`` other
 than twice ``--crop-size`` (the resize route of the stem).
 
+``train``, ``eval`` and ``predict-corpus`` run data-parallel as the JAX
+CLI's do: the same command on every process, with ``--data-parallel`` and
+``--coordinator host:port --num-processes P --process-id i``, one process
+per card (``parallel.initialize_distributed``: NCCL where every process has
+a card of its own, gloo on the CPU or where processes share a card;
+``--cpu`` makes every process a CPU rank). ``train`` splits each batch over
+the processes (each draws ``--batch / P`` clips from its own slice of the
+data); ``eval`` and ``predict-corpus`` give each process a disjoint slice
+of the sequences or videos, and every ``eval`` process prints the same
+global metrics. ``--data-parallel`` alone is a world of one process.
+
 What the JAX CLI has and this one does not:
 
   * flags that chose a TPU lowering (``--fft-mode``, ``--stem-mode``,
     ``--use-pallas``): not registered, the port has one lowering each
     (cuFFT, the stem kernel, the kernels always on);
-  * multi-process and data-parallel flags (``--data-parallel``,
-    ``--coordinator``, ``--num-processes``, ``--process-id``; A12), and
-    ``train --tensorboard`` / ``--debug-nans``: not registered yet;
+  * ``train --tensorboard`` / ``--debug-nans``: not registered yet;
   * the ``bench`` subcommand: registered, it exits naming ROADMAP.md A15.
 """
 
@@ -79,6 +88,55 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    choices=["float32", "bfloat16"])
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (default: the CUDA card)")
+
+
+def _add_multihost(p: argparse.ArgumentParser, what: str) -> None:
+    """The launch flags of a data-parallel run: the same command on every
+    process, each with its own ``--process-id``."""
+    p.add_argument("--data-parallel", action="store_true",
+                   help="data-parallel over the processes of --coordinator "
+                        "(alone: one process)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: rank 0's address host:port; launch "
+                        "the SAME command in every process with "
+                        f"--process-id 0..P-1. {what}")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process: total process count P")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process: this process's id (0-based)")
+
+
+def _world(args) -> int:
+    """The process count the multi-process flags ask for (1 without a
+    coordinator); exits on the flags the JAX CLI refuses."""
+    if not args.coordinator:
+        if args.num_processes is not None or args.process_id is not None:
+            # running alone would work the whole data set while the peers
+            # wait for a coordinator
+            raise SystemExit("--num-processes/--process-id require "
+                             "--coordinator (pod-slice launch needs "
+                             "all three on every host)")
+        return 1
+    if args.num_processes is None or args.process_id is None:
+        raise SystemExit("--coordinator requires --num-processes and "
+                         "--process-id")
+    return args.num_processes
+
+
+def _group(args):
+    """This process's ``parallel.DataGroup``: a world of one on the card
+    (or the CPU with ``--cpu``) without ``--coordinator``, else the
+    coordinator's world, formed here."""
+    from . import parallel
+    _world(args)
+    device = "cpu" if args.cpu else None
+    if not args.coordinator:
+        return parallel.initialize_distributed(device=device)
+    group = parallel.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id, device=device)
+    print(f"distributed: process {group.rank} of {group.world}, "
+          f"{group.backend} on {group.device}", file=sys.stderr)
+    return group
 
 
 def _config(args) -> MimamoConfig:
@@ -186,6 +244,16 @@ def cmd_train(args) -> int:
     import dataclasses
     from . import checkpoints, train
 
+    if args.coordinator and not args.data_parallel:
+        raise SystemExit("multi-host training requires --data-parallel "
+                         "(the global batch is sharded over the pod-slice "
+                         "mesh)")
+    world = _world(args)
+    if args.batch % world:
+        # training batches are never padded: padding would taint the
+        # BatchNorm statistics
+        raise SystemExit(f"--batch {args.batch} must be divisible by the "
+                         f"process count {world}")
     loss_axis = args.loss_axis or (
         "batch" if args.dataset == "omg" else "time")
     # --mse-weight alone implies the composite loss; an explicit
@@ -211,7 +279,6 @@ def cmd_train(args) -> int:
                          f"{args.eval_every}")
     config = checkpoints.apply_backbone_meta(
         dataclasses.replace(_config(args), train=train_spec), args.ckpt)
-    device = _device(args)
     if config.backbone.appearance_stride > 1:
         print("note: --appearance-stride applies only where the frozen "
               "backbone runs online; fine-tuning runs the real per-"
@@ -223,33 +290,45 @@ def cmd_train(args) -> int:
     ds = _dataset(args, config)
     if len(ds) == 0:
         raise SystemExit("dataset produced 0 clips (too short sequences?)")
-    if len(ds) // config.train.batch_size == 0:
+    local_batch = config.train.batch_size // world
+    if (len(ds) // world) // local_batch == 0:
+        per = "" if world == 1 else f" ({len(ds) // world} per process)"
         raise SystemExit(
-            f"dataset has {len(ds)} clips — fewer than one batch of "
-            f"{config.train.batch_size}; shrink --batch or add data")
+            f"dataset has {len(ds)} clips{per} — fewer than one batch of "
+            f"{local_batch}; shrink --batch or add data")
     eval_ds = None
     if args.eval_root:
         eval_args = copy.copy(args)
         eval_args.root = args.eval_root
         eval_args.manifest = args.eval_manifest or args.manifest
         eval_ds = _dataset(eval_args, config)
-    train.fit(config, ds, ckpt=args.ckpt, resume=args.resume,
-              eval_dataset=eval_ds, epochs=args.epochs,
-              eval_every=args.eval_every, log=args.log, device=device,
-              on_epoch=lambda row: print(json.dumps(row), flush=True))
+    with _group(args) as group:
+        train.fit(config, ds, ckpt=args.ckpt, resume=args.resume,
+                  eval_dataset=eval_ds, epochs=args.epochs,
+                  eval_every=args.eval_every, log=args.log,
+                  on_epoch=lambda row: print(json.dumps(row), flush=True),
+                  group=group)
     return 0
 
 
 def cmd_eval(args) -> int:
+    """Each process streams its slice of the sequences on its own device
+    and the exact moment sums are gathered, so every process prints the
+    same metrics. (The JAX CLI's exit for a ``--batch-streams`` that its
+    local devices do not divide has no counterpart: a process holds one
+    device.)"""
     from . import checkpoints
     from .data import eval as eval_mod
     config = checkpoints.apply_backbone_meta(_config(args), args.ckpt)
-    model = _model(config, args.ckpt, _device(args))
-    ds = _dataset(args, config)
-    fn = (eval_mod.evaluate_omg if args.dataset == "omg"
-          else eval_mod.evaluate_affwild2)
-    print(json.dumps(fn(model, ds, chunk=config.clip.clip_len,
-                        batch_streams=args.batch_streams)))
+    with _group(args) as group:
+        model = _model(config, args.ckpt, group.device)
+        ds = _dataset(args, config)
+        fn = (eval_mod.evaluate_omg if args.dataset == "omg"
+              else eval_mod.evaluate_affwild2)
+        print(json.dumps(fn(model, ds, chunk=config.clip.clip_len,
+                            batch_streams=args.batch_streams,
+                            process_id=group.rank,
+                            process_count=group.world)))
     return 0
 
 
@@ -257,15 +336,18 @@ def cmd_predict_corpus(args) -> int:
     from . import checkpoints
     from .corpus import CorpusRunner
     config = checkpoints.apply_backbone_meta(_config(args), args.ckpt)
-    model = _model(config, args.ckpt, _device(args))
-    paths = sorted(glob.glob(args.videos))
-    if not paths:
-        raise SystemExit(f"no videos match {args.videos!r}")
-    runner = CorpusRunner(model, args.out_dir, batch_clips=args.batch,
-                          loader_threads=args.threads,
-                          use_native=not args.no_native,
-                          smooth=args.smooth, align=args.align)
-    print(json.dumps(runner.run(paths)))
+    with _group(args) as group:
+        model = _model(config, args.ckpt, group.device)
+        paths = sorted(glob.glob(args.videos))
+        if not paths:
+            raise SystemExit(f"no videos match {args.videos!r}")
+        runner = CorpusRunner(model, args.out_dir, batch_clips=args.batch,
+                              loader_threads=args.threads,
+                              use_native=not args.no_native,
+                              process_id=group.rank,
+                              process_count=group.world,
+                              smooth=args.smooth, align=args.align)
+        print(json.dumps(runner.run(paths)))
     return 0
 
 
@@ -566,6 +648,8 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--loss-axis", choices=["time", "batch"], default=None,
                    help="CCC axis (default: batch for omg, time for "
                         "affwild2)")
+    _add_multihost(p, "Each process draws --batch / P clips a step from "
+                      "its own slice of the data")
     _add_common(p)
     p.set_defaults(fn=cmd_train)
 
@@ -577,6 +661,10 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--batch-streams", type=int, default=8,
                    help="sequences advanced together per forward "
                         "(batch-of-streams eval)")
+    _add_multihost(p, "Each process streams a disjoint sequence slice on "
+                      "its own device; the CCC reduces exact moment sums "
+                      "across processes, so every process prints the same "
+                      "global metrics")
     _add_common(p)
     p.set_defaults(fn=cmd_eval)
 
@@ -602,6 +690,9 @@ def main(argv: Optional[list] = None) -> int:
                         "(<video>.landmarks.npy / .openface.csv) route "
                         "through the Python loader; without sidecars the "
                         "C++ loader aligns from its own eye tracker")
+    _add_multihost(p, "Each process works a disjoint round-robin video "
+                      "slice and appends to its own manifest in the "
+                      "shared --out-dir")
     _add_common(p)
     p.set_defaults(fn=cmd_predict_corpus)
 

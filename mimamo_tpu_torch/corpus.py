@@ -1,10 +1,13 @@
 """Checkpointed corpus runner: batched inference over a video corpus.
 
-Counterpart of ``mimamo_tpu/corpus.py`` on one device. Clips come from
-the native C++ loader (decode, track, crop on C++ threads; the library is
-built from ``native/loader.cpp`` at first use, ``io.native_loader``) or
-from the Python stream (windowed decode, stateful trackers,
-box crops by ``cv2.resize`` on the host, or similarity-aligned crops by
+Counterpart of ``mimamo_tpu/corpus.py``, one device a process; the
+processes of a data-parallel group (``process_id`` / ``process_count``)
+each work a disjoint slice of the corpus (``parallel.shard_paths``).
+Clips come from the native C++ loader (decode, track, crop on C++
+threads; the library is built from ``native/loader.cpp`` at first use,
+``io.native_loader``) or from the Python stream (windowed decode,
+stateful trackers, box crops by ``cv2.resize`` on the host, or
+similarity-aligned crops by
 ``Mimamo.crop_video_chunked`` on the device); fixed-size clip batches go
 through ``Mimamo.predict_clips``; each video's window outputs are
 overlap-averaged into a per-frame (valence, arousal) CSV and a row is
@@ -34,18 +37,8 @@ import numpy as np
 from . import preprocess
 from .api import smooth_series
 from .io import decode, native_loader
+from .parallel import shard_paths
 from .runner import Mimamo
-
-
-def shard_paths(paths: Sequence[str], process_id: int = 0,
-                process_count: int = 1) -> list:
-    """Disjoint round-robin slice of a work list for one of
-    ``process_count`` processes (an own copy of
-    ``mimamo_tpu.parallel.shard_paths``, with explicit ids)."""
-    if not 0 <= process_id < process_count:
-        raise ValueError(f"process_id {process_id} out of range for "
-                         f"{process_count}")
-    return list(paths[process_id::process_count])
 
 
 class CorpusRunner:

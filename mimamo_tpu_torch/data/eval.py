@@ -1,21 +1,27 @@
 """Evaluation: CCC per protocol.
 
-Counterpart of ``mimamo_tpu/data/eval.py`` on one process. OMG-Emotion
-scores utterance-level CCC (the mean prediction of an utterance against
-its label); Aff-Wild2 scores frame-level CCC over the valid frames of all
+Counterpart of ``mimamo_tpu/data/eval.py``. OMG-Emotion scores
+utterance-level CCC (the mean prediction of an utterance against its
+label); Aff-Wild2 scores frame-level CCC over the valid frames of all
 videos. Up to ``batch_streams`` sequences advance together through one
 ``streaming.StreamingSession``, one batched forward per chunk, so a
 sequence of any length needs the memory of one chunk. The JAX package's
-dispatch pipeline has no counterpart here. The moment sums are the exact
-reduction a multi-process eval would add up.
+dispatch pipeline has no counterpart here.
+
+Across processes (``process_id`` / ``process_count``, the ranks of a
+``parallel.DataGroup``): each process streams a disjoint round-robin slice
+of the sequences on its own device, and the exact moment sums of all
+processes are gathered (``parallel.host_allgather_f64``), so every process
+returns the same global metrics.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
+from .. import parallel
 from ..runner import Mimamo
 from ..streaming import StreamingSession
 from .datasets import AffWild2Dataset, OMGEmotionDataset
@@ -122,21 +128,50 @@ def stream_predict_many(model: Mimamo,
                 yield st["key"], np.concatenate(st["parts"], axis=0)
 
 
-def _reduce_ccc(preds: np.ndarray, golds: np.ndarray):
-    if len(preds) == 0:
-        raise ValueError("eval produced zero sequences: empty or "
-                         "mis-pointed dataset root?")
-    return ccc_np(preds, golds), len(preds)
+def _process_slice(it, process_id: Optional[int],
+                   process_count: Optional[int]):
+    """The items of ``it`` whose index is ``process_id`` modulo
+    ``process_count``: disjoint work, the same enumeration everywhere."""
+    if not process_count or process_count == 1:
+        yield from it
+        return
+    if process_id is None or not 0 <= process_id < process_count:
+        # a missing id would select nothing and report a plausible CCC
+        raise ValueError(
+            f"process_count={process_count} requires process_id in "
+            f"[0, {process_count}), got {process_id!r}")
+    for j, item in enumerate(it):
+        if j % process_count == process_id:
+            yield item
+
+
+def _reduce_ccc(preds: np.ndarray, golds: np.ndarray,
+                process_count: Optional[int]):
+    """(CCC [D], rows) of the local [N, D] rows, or of every process's
+    rows by the gathered moment sums (a collective: every process must
+    reach it). One process with no rows is a mis-pointed root; an empty
+    slice is legitimate only with more than one process."""
+    if not process_count or process_count == 1:
+        if len(preds) == 0:
+            raise ValueError("eval produced zero sequences: empty or "
+                             "mis-pointed dataset root?")
+        return ccc_np(preds, golds), len(preds)
+    sums = parallel.host_allgather_f64(
+        ccc_moment_sums(preds, golds)).sum(axis=0)
+    return ccc_from_moment_sums(sums), int(round(sums[0, 0]))
 
 
 def evaluate_omg(model: Mimamo, dataset: OMGEmotionDataset,
-                 chunk: int = 48, batch_streams: int = 8
-                 ) -> Dict[str, float]:
-    """Utterance-level CCC of valence and arousal."""
+                 chunk: int = 48, batch_streams: int = 8,
+                 process_id: Optional[int] = None,
+                 process_count: Optional[int] = None) -> Dict[str, float]:
+    """Utterance-level CCC of valence and arousal; with ``process_count``
+    > 1, of every process's slice together (module docstring)."""
     labels = {}
 
     def items():
-        for i, src, label in dataset.utterance_sources():
+        for i, src, label in _process_slice(dataset.utterance_sources(),
+                                            process_id, process_count):
             labels[i] = label
             yield i, src
 
@@ -147,19 +182,23 @@ def evaluate_omg(model: Mimamo, dataset: OMGEmotionDataset,
         golds.append(labels[i])
     ccc, n = _reduce_ccc(
         np.stack(preds) if preds else np.zeros((0, 2)),
-        np.stack(golds) if golds else np.zeros((0, 2)))
+        np.stack(golds) if golds else np.zeros((0, 2)), process_count)
     return {"valence_ccc": float(ccc[0]), "arousal_ccc": float(ccc[1]),
             "mean_ccc": float(ccc.mean()), "n_utterances": int(n)}
 
 
 def evaluate_affwild2(model: Mimamo, dataset: AffWild2Dataset,
-                      chunk: int = 48, batch_streams: int = 8
+                      chunk: int = 48, batch_streams: int = 8,
+                      process_id: Optional[int] = None,
+                      process_count: Optional[int] = None
                       ) -> Dict[str, float]:
-    """Frame-level CCC over all valid frames of all videos."""
+    """Frame-level CCC over all valid frames of all videos; with
+    ``process_count`` > 1, of every process's slice together."""
     meta = {}
 
     def items():
-        for vid, src, labels, mask in dataset.video_sources():
+        for vid, src, labels, mask in _process_slice(
+                dataset.video_sources(), process_id, process_count):
             meta[vid] = (labels, mask)
             yield vid, src
 
@@ -172,6 +211,7 @@ def evaluate_affwild2(model: Mimamo, dataset: AffWild2Dataset,
         golds.append(labels[valid])
     ccc, n = _reduce_ccc(
         np.concatenate(preds) if preds else np.zeros((0, 2)),
-        np.concatenate(golds) if golds else np.zeros((0, 2)))
+        np.concatenate(golds) if golds else np.zeros((0, 2)),
+        process_count)
     return {"valence_ccc": float(ccc[0]), "arousal_ccc": float(ccc[1]),
             "mean_ccc": float(ccc.mean()), "n_frames": int(n)}

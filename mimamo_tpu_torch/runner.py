@@ -3,7 +3,8 @@
 Counterpart of ``Mimamo.predict_clips`` / ``predict_stream`` /
 ``predict_from_crops`` / ``predict_video`` / ``crop_video_chunked`` /
 ``classify_frames`` / ``forward`` / ``embed_frames`` / ``_micro_motion``
-in ``mimamo_tpu/runner.py``: clip mode, chunked streaming with carried
+/ ``predict_batch`` in ``mimamo_tpu/runner.py``: clip mode, clip batches
+split over data-parallel ranks, chunked streaming with carried
 state, sliding windows over a long crop sequence, and decoded video plus
 face boxes or landmarks through crop or alignment on the device. The JAX
 package's in-flight cap and dispatch pipeline existed for its device
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import preprocess
+from . import parallel, preprocess
 from .backbone import FoldedResNet50, ResNet50, fold_batchnorm
 from .config import MimamoConfig
 from .kernels import phase_kernel
@@ -212,6 +213,24 @@ class Mimamo(nn.Module):
         """[B, T, S, S, 3] aligned crops (numpy or tensor) -> [B, T, 2]
         float32 on the model's device."""
         return self(self._check_crops(crops_rgb, 2))[0]
+
+    @torch.no_grad()
+    def predict_batch(self, crops_rgb: Union[np.ndarray, torch.Tensor],
+                      group=None) -> torch.Tensor:
+        """``predict_clips`` split over the ranks of ``group`` (a
+        ``parallel.DataGroup``; None or a world of one: ``predict_clips``).
+        Every rank passes the same [B, T, S, S, 3] batch; it is zero-padded
+        to a multiple of W, each rank forwards its block of rows, and an
+        all-gather gives every rank the whole [B, T, 2], cut back to B (a
+        collective: every rank must call it)."""
+        crops_rgb = self._check_crops(crops_rgb, 2)
+        if group is None or group.world == 1:
+            return self.predict_clips(crops_rgb)
+        b = crops_rgb.shape[0]
+        padded = parallel.pad_to_multiple(crops_rgb, group.world)
+        rows = padded.shape[0] // group.world
+        mine = padded[group.rank * rows:(group.rank + 1) * rows]
+        return parallel.all_gather(self.predict_clips(mine), group)[:b]
 
     @torch.no_grad()
     def predict_stream(self, crops_rgb: Union[np.ndarray, torch.Tensor],

@@ -3,7 +3,8 @@
 Counterpart of ``mimamo_tpu/train.py`` (``make_optimizer``,
 ``create_train_state``, ``make_train_step``, ``make_eval_step``,
 ``variables_from_state``) and of the body of ``cli.cmd_train``
-(:func:`fit`), on one device.
+(:func:`fit`), on one device or data-parallel over a
+``parallel.DataGroup``.
 
 The step follows the JAX package's: clips cast to float32 before any math;
 per-clip flip and brightness deterministic in (seed, step); the micro
@@ -30,6 +31,17 @@ the backbone gets no update and no moments.
 Fine-tuning changes backbone parameters in place; the step drops the
 model's folded inference copy after each such update, so that later
 inference (eval, ``predict_clips``) folds the new weights.
+
+Data parallelism (a group of W > 1 ranks, one device each) follows the
+JAX package's sharded step, where GSPMD reduces over the global batch:
+each rank holds batch / W clips; rank 0's weights are broadcast when the
+step is made; the BatchNorms take global statistics
+(``batchnorm.synced``); the loss and the CCC metrics are those of the
+global batch (:func:`_loss_and_metrics`); the gradients are averaged over
+the ranks (``parallel.average_gradients``, which also takes out the factor
+W that the collectives' backward leaves), so Adam makes the same update on
+every rank; the augmentation draws for the global batch and each rank
+takes its rows. A world of one runs the local path.
 """
 
 from __future__ import annotations
@@ -46,10 +58,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import checkpoints, preprocess, weights
+from . import batchnorm, checkpoints, parallel, preprocess, weights
 from .config import MimamoConfig, TrainSpec
 from .losses import ccc, ccc_loss
-from .runner import Mimamo, resolve_device
+from .parallel import DataGroup
+from .runner import Mimamo
 
 Batch = Dict[str, object]       # numpy arrays or tensors
 
@@ -155,7 +168,8 @@ def create_train_state(model: Mimamo, total_steps: Optional[int] = None
     return TrainState(0, model, opt, sched)
 
 
-def augment_clips(clips: torch.Tensor, spec: TrainSpec, step: int
+def augment_clips(clips: torch.Tensor, spec: TrainSpec, step: int,
+                  first: int = 0, total: Optional[int] = None
                   ) -> torch.Tensor:
     """Per-clip augmentation of [B, T, H, W, 3] float clips, the same for
     every frame of a clip (the micro stream needs temporally consistent
@@ -164,13 +178,16 @@ def augment_clips(clips: torch.Tensor, spec: TrainSpec, step: int
     ``brightness_jitter`` j. The draws come from a CPU ``torch.Generator``
     seeded from (``spec.seed``, ``step``), so a step's augmentation is
     reproducible on any device (the numbers differ from JAX's
-    ``jax.random``)."""
+    ``jax.random``). The draws are made for a global batch of ``total``
+    clips (default: these) and ``clips`` are its rows ``first`` onward, so
+    the ranks of a data-parallel step augment as one process would."""
     seed = int(np.random.SeedSequence([spec.seed, step]).generate_state(
         1, np.uint64)[0])
     g = torch.Generator().manual_seed(seed)
     b = clips.shape[0]
-    u_flip = torch.rand(b, generator=g)
-    u_bright = torch.rand(b, generator=g)
+    total = b if total is None else total
+    u_flip = torch.rand(total, generator=g)[first:first + b]
+    u_bright = torch.rand(total, generator=g)[first:first + b]
     if spec.augment:
         flip = (u_flip < 0.5).to(clips.device)[:, None, None, None, None]
         clips = torch.where(flip, clips.flip(3), clips)
@@ -199,28 +216,38 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 
 def _loss_and_metrics(out: torch.Tensor, labels: torch.Tensor,
-                      mask: torch.Tensor, spec: TrainSpec
+                      mask: torch.Tensor, spec: TrainSpec,
+                      group: Optional[DataGroup] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss, [2] CCC of valence and arousal) of [B, T, 2] predictions;
-    all-padding clips weigh 0."""
+    """(loss, [2] CCC of valence and arousal) of [B, T, 2] predictions over
+    the global batch of ``group`` (these rows for a world of one);
+    all-padding clips weigh 0. Frame-level ("time"): the clip-weighted sum
+    of the per-clip losses and CCCs over the global clip weight, both
+    all-reduced (the ranks may hold different numbers of padding clips).
+    Batch-level ("batch"): the CCC of the gathered [B, 2] clip means."""
     clip_w = (mask.sum(dim=1) > 0).to(torch.float32)
     if spec.loss_axis == "batch":
         m = mask[..., None]
-        p = (out * m).sum(dim=1) / (m.sum(dim=1) + 1e-8)
-        y = labels[:, 0]
-        return (ccc_loss(p, y, mask=clip_w, mse_weight=spec.mse_weight),
-                ccc(p, y, mask=clip_w))
+        p = parallel.all_gather((out * m).sum(dim=1) / (m.sum(dim=1) + 1e-8),
+                                group)
+        y = parallel.all_gather(labels[:, 0], group)
+        w = parallel.all_gather(clip_w, group)
+        return (ccc_loss(p, y, mask=w, mse_weight=spec.mse_weight),
+                ccc(p, y, mask=w))
     per_clip = torch.stack([
         ccc_loss(out[i], labels[i], mask=mask[i],
                  mse_weight=spec.mse_weight) for i in range(out.shape[0])])
     per_ccc = torch.stack([ccc(out[i], labels[i], mask=mask[i])
                            for i in range(out.shape[0])])       # [B, 2]
-    denom = clip_w.sum() + 1e-8
-    return ((per_clip * clip_w).sum() / denom,
-            (per_ccc * clip_w[:, None]).sum(dim=0) / denom)
+    sums = parallel.all_reduce(torch.cat([
+        (per_clip * clip_w).sum()[None],
+        (per_ccc * clip_w[:, None]).sum(dim=0), clip_w.sum()[None]]), group)
+    denom = sums[3] + 1e-8
+    return sums[0] / denom, sums[1:3] / denom
 
 
-def make_train_step(model: Mimamo) -> Callable:
+def make_train_step(model: Mimamo, group: Optional[DataGroup] = None
+                    ) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: one update of
     ``state`` in place (returned for the JAX package's call shape).
 
@@ -228,13 +255,21 @@ def make_train_step(model: Mimamo) -> Callable:
     ``labels`` [B, T, 2], ``mask`` [B, T] and, optionally, ``features``
     [B, T, F] cached appearance embeddings (frozen backbone and no
     augmentation only). metrics: ``loss``, ``ccc_v``, ``ccc_a`` as
-    0-d tensors on the model's device."""
+    0-d tensors on the model's device.
+
+    ``group`` (W > 1 ranks): every rank calls the step with its own B
+    clips of the global batch of W x B, in rank order; rank 0's weights
+    are broadcast here, and the metrics are the global batch's on every
+    rank (module docstring)."""
     cfg = model.config
     spec = cfg.train
     freeze = spec.freeze_backbone
     augmenting = spec.augment or spec.brightness_jitter > 0
     trained = ((model.temporal,) if freeze
                else (model.backbone, model.temporal))
+    world = 1 if group is None else group.world
+    if world > 1:
+        parallel.broadcast_module(model, group)
 
     def train_step(state: TrainState, batch: Batch):
         dev = model.device
@@ -246,7 +281,10 @@ def make_train_step(model: Mimamo) -> Callable:
                     "cached features cannot reflect augmented crops (drop "
                     "batch['features'] or disable augment/"
                     "brightness_jitter)")
-            clips = augment_clips(clips, spec, state.step)
+            b = clips.shape[0]
+            clips = augment_clips(clips, spec, state.step,
+                                  first=b * (group.rank if world > 1 else 0),
+                                  total=b * world)
         if "features" in batch and not freeze and cfg.temporal.use_macro:
             raise ValueError(
                 "cached features cannot be used with freeze_backbone=False "
@@ -257,9 +295,9 @@ def make_train_step(model: Mimamo) -> Callable:
                 phase_stacks = model._micro_motion(
                     preprocess.to_grayscale(clips))
         b, t = clips.shape[:2]
-        # training mode until after the backward pass: a rematerialized
-        # backbone runs its forward again inside it
-        with _training(*trained):
+        # training mode and the synced BatchNorms until after the backward
+        # pass: a rematerialized backbone runs its forward again inside it
+        with _training(*trained), batchnorm.synced(model, group):
             if not cfg.temporal.use_macro:
                 emb = None
             elif "features" in batch:
@@ -275,9 +313,12 @@ def make_train_step(model: Mimamo) -> Callable:
             out, _ = model.temporal(phase_stacks, emb, num_frames=t)
             loss, ccc_vec = _loss_and_metrics(
                 out, _as_tensor(batch["labels"], dev),
-                _as_tensor(batch["mask"], dev), spec)
+                _as_tensor(batch["mask"], dev), spec, group)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        parallel.average_gradients(
+            (p for g in state.optimizer.param_groups for p in g["params"]),
+            group)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -308,44 +349,64 @@ def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
         resume: bool = False, eval_dataset=None,
         epochs: Optional[int] = None, eval_every: int = 1,
         log: Optional[str] = None, device=None,
-        on_epoch: Optional[Callable[[dict], None]] = None
+        on_epoch: Optional[Callable[[dict], None]] = None,
+        group: Optional[DataGroup] = None
         ) -> Tuple[TrainState, List[dict]]:
     """Train a model from ``weights.init_variables(config,
-    config.train.seed)`` on ``dataset`` (``data.datasets``), one device;
-    returns (final state, one metrics row per epoch).
+    config.train.seed)`` on ``dataset`` (``data.datasets``), on ``device``
+    or data-parallel over ``group``; returns (final state, one metrics row
+    per epoch).
 
-    The body of ``mimamo_tpu.cli.cmd_train`` on one process: per epoch,
-    ``len(dataset) // batch_size`` steps over a shuffle seeded with
-    ``seed + epoch`` (stratified across sources for ``loss_axis="batch"``),
-    from cached ``.feat.npy`` features when the dataset has them and the
-    appearance stream need not run online (no augmentation, frozen
-    backbone). ``ckpt``: a checkpoint directory, with the backbone meta
-    applied to ``config`` first and written beside every save; the state
-    is saved after each epoch, the best eval's under ``<ckpt>_best``.
-    ``resume`` restores the latest step from ``ckpt``; a cosine schedule
-    keeps the horizon of the first run (``<ckpt>.plan.json``) and extends
-    it only once the restored step has passed it. ``eval_dataset`` is
-    scored every ``eval_every`` epochs (``evaluate_omg`` for an
-    ``OMGEmotionDataset``, ``evaluate_affwild2`` otherwise). The rows go to
-    ``log`` (default ``<ckpt>.metrics.jsonl``) as JSON lines, and to
-    ``on_epoch`` as each epoch ends.
+    The body of ``mimamo_tpu.cli.cmd_train``: per epoch, steps over a
+    shuffle seeded with ``seed + epoch`` (stratified across sources for
+    ``loss_axis="batch"``), from cached ``.feat.npy`` features when the
+    dataset has them and the appearance stream need not run online (no
+    augmentation, frozen backbone). ``ckpt``: a checkpoint directory, with
+    the backbone meta applied to ``config`` first and written beside every
+    save; the state is saved after each epoch, the best eval's under
+    ``<ckpt>_best``. ``resume`` restores the latest step from ``ckpt``; a
+    cosine schedule keeps the horizon of the first run
+    (``<ckpt>.plan.json``) and extends it only once the restored step has
+    passed it. ``eval_dataset`` is scored every ``eval_every`` epochs
+    (``evaluate_omg`` for an ``OMGEmotionDataset``, ``evaluate_affwild2``
+    otherwise). The rows go to ``log`` (default ``<ckpt>.metrics.jsonl``)
+    as JSON lines, and to ``on_epoch`` as each epoch ends.
+
+    ``group`` (``parallel.DataGroup``; ``device`` is then its device):
+    every rank calls ``fit`` alike. Each draws ``batch_size / W`` clips a
+    step from its own slice of the clip index (``dataset.batches`` with
+    ``process_id`` / ``process_count``), ``(len(dataset) // W) //
+    (batch_size / W)`` steps an epoch on every rank; training batches are
+    never padded (padding would taint the BatchNorm statistics), so
+    ``batch_size`` must be divisible by W. Every rank resumes from
+    ``ckpt`` and evaluates its slice of ``eval_dataset`` (the metrics are
+    the whole set's on every rank); rank 0 writes the checkpoints, the plan
+    and the log, and the others wait for it at a barrier.
     """
     from .data import eval as eval_mod
     from .data.datasets import OMGEmotionDataset
 
+    if group is None:
+        group = parallel.initialize_distributed(device=device)
+    world, rank = group.world, group.rank
+    writer = rank == 0
     config = checkpoints.apply_backbone_meta(config, ckpt)
     spec = config.train
     epochs = spec.epochs if epochs is None else epochs
     if len(dataset) == 0:
         raise ValueError("dataset produced 0 clips (too short sequences?)")
-    steps_per_epoch = len(dataset) // spec.batch_size
+    if spec.batch_size % world:
+        raise ValueError(f"batch_size {spec.batch_size} must be divisible "
+                         f"by the process count {world}")
+    local_batch = spec.batch_size // world
+    steps_per_epoch = (len(dataset) // world) // local_batch
     if steps_per_epoch == 0:
         raise ValueError(f"dataset has {len(dataset)} clips, fewer than one "
                          f"batch of {spec.batch_size}; shrink batch_size or "
                          f"add data")
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
-    model = Mimamo(config, device=resolve_device(device))
+    model = Mimamo(config, device=group.device)
     model.load_state_dict(weights.init_variables(config, spec.seed))
     planned = max(epochs * steps_per_epoch, 1)
     state = create_train_state(model, total_steps=planned)
@@ -363,21 +424,31 @@ def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
                     saved = int(json.load(f)["total_steps"])
                 horizon = saved if resumed < saved else resumed + planned
             state.set_schedule(horizon)
-    if plan_path and spec.lr_schedule == "cosine":
+    group.barrier()              # every rank has read the plan
+    if writer and plan_path and spec.lr_schedule == "cosine":
         with open(plan_path, "w") as f:
             json.dump({"total_steps": horizon}, f)
-    step_fn = make_train_step(model)
+    step_fn = make_train_step(model, group)
     evaluate = (eval_mod.evaluate_omg
                 if isinstance(eval_dataset, OMGEmotionDataset)
                 else eval_mod.evaluate_affwild2)
     log_path = log or (ckpt.rstrip("/") + ".metrics.jsonl" if ckpt else None)
     best_ccc, history = -2.0, []
+
+    def save(path: str) -> None:
+        if writer:
+            checkpoints.save(path, state)
+            checkpoints.save_backbone_meta(path, config.backbone.mean_rgb,
+                                           config.backbone.channel_order)
+        group.barrier()
+
     for epoch in range(epochs):
         t0 = time.time()
         n, agg = 0, {}
-        for batch in dataset.batches(spec.batch_size, shuffle=True,
+        for batch in dataset.batches(local_batch, shuffle=True,
                                      seed=spec.seed + epoch,
                                      drop_remainder=True,
+                                     process_id=rank, process_count=world,
                                      stratify=spec.loss_axis == "batch",
                                      features=not augmenting):
             if n >= steps_per_epoch:
@@ -389,25 +460,20 @@ def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
         row = {"epoch": epoch, "steps": n, "sec": round(time.time() - t0, 2),
                **{k: round(float(v) / max(n, 1), 4) for k, v in agg.items()}}
         if eval_dataset is not None and (epoch + 1) % eval_every == 0:
-            ev = evaluate(model, eval_dataset, chunk=config.clip.clip_len)
+            ev = evaluate(model, eval_dataset, chunk=config.clip.clip_len,
+                          process_id=rank, process_count=world)
             row.update({"val_" + k: round(v, 4)
                         for k, v in ev.items() if k.endswith("_ccc")})
             if ckpt and ev["mean_ccc"] > best_ccc:
                 best_ccc = ev["mean_ccc"]
-                best_dir = ckpt.rstrip("/") + "_best"
-                checkpoints.save(best_dir, state)
-                checkpoints.save_backbone_meta(
-                    best_dir, config.backbone.mean_rgb,
-                    config.backbone.channel_order)
+                save(ckpt.rstrip("/") + "_best")
                 row["best"] = True
         history.append(row)
         if on_epoch is not None:
             on_epoch(row)
-        if log_path:
+        if writer and log_path:
             with open(log_path, "a") as f:
                 f.write(json.dumps(row) + "\n")
         if ckpt:
-            checkpoints.save(ckpt, state)
-            checkpoints.save_backbone_meta(ckpt, config.backbone.mean_rgb,
-                                           config.backbone.channel_order)
+            save(ckpt)
     return state, history

@@ -5,8 +5,8 @@ crops and with emotions; ``extract``; ``eval`` batched over streams;
 ``predict-corpus``) at atol 1e-5; ``train`` against ``train.fit`` (which
 tests/test_torch_train.py holds against the JAX step). Also: argument
 coherence, the model-variant flags (each builds its variant and runs
-through ``predict`` and ``serve``), the TPU and multi-process flags that
-are not registered, and that every
+through ``predict`` and ``serve``), the TPU flags that are not registered,
+the multi-process flags failing as the JAX CLI's do, and that every
 subcommand raises without a card unless ``--cpu`` is given.
 
 The weights are the JAX package's, converted with
@@ -330,17 +330,12 @@ def test_model_variant_flags_name_a16(flags, field, want, sub, tmp_path,
 
 @pytest.mark.parametrize("argv", [
     ["serve", "--fft-mode", "fft"], ["serve", "--stem-mode", "upscale"],
-    ["serve", "--use-pallas"], ["eval", "--dataset", "affwild2", "--root",
-                                ".", "--data-parallel"],
-    ["train", "--dataset", "affwild2", "--root", ".", "--coordinator",
-     "h:1"], ["train", "--dataset", "affwild2", "--root", ".",
-              "--tensorboard", "tb"],
+    ["serve", "--use-pallas"],
+    ["train", "--dataset", "affwild2", "--root", ".",
+     "--tensorboard", "tb"],
     ["train", "--dataset", "affwild2", "--root", ".", "--debug-nans"],
-    ["predict-corpus", "--videos", "x", "--out-dir", "o",
-     "--num-processes", "2"],
     ["convert", "--out", "o", "--use-pallas"], ["bench"]],
-    ids=["fft-mode", "stem-mode", "use-pallas", "data-parallel",
-         "coordinator", "tensorboard", "debug-nans", "num-processes",
+    ids=["fft-mode", "stem-mode", "use-pallas", "tensorboard", "debug-nans",
          "convert", "bench"])
 def test_flags_not_carried_over_are_rejected(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -349,6 +344,32 @@ def test_flags_not_carried_over_are_rejected(argv, capsys):
     err = capsys.readouterr().err
     assert "unrecognized arguments" in err or (
         argv == ["bench"] and "A15" in err)
+
+
+@pytest.mark.parametrize("argv, error, text", [
+    (["eval", "--dataset", "affwild2", "--root", ".", "--data-parallel"],
+     FileNotFoundError, "crops"),
+    (["train", "--dataset", "affwild2", "--root", ".", "--coordinator",
+      "h:1"], SystemExit, "requires --data-parallel"),
+    (["predict-corpus", "--videos", "x", "--out-dir", "o",
+      "--num-processes", "2"], SystemExit, "require --coordinator")],
+    ids=["data-parallel", "coordinator", "num-processes"])
+def test_multiprocess_flags_fail_as_jax(argv, error, text, tmp_path,
+                                        monkeypatch):
+    """The multi-process flags parse, and the same argv fails as the JAX
+    CLI fails it, with its text: ``eval --data-parallel`` on an empty root
+    finds no crops directory; ``train --coordinator`` needs
+    ``--data-parallel``;
+    ``--num-processes`` needs ``--coordinator``."""
+    from mimamo_tpu import cli as jcli
+    monkeypatch.chdir(tmp_path)
+    raised = []
+    for main in (cli.main, jcli.main):
+        with pytest.raises(error, match=text) as e:
+            main(argv + FLAGS)
+        raised.append(str(e.value))
+    if error is SystemExit:
+        assert raised[0] == raised[1]
 
 
 @pytest.mark.parametrize("argv", [

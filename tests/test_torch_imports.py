@@ -51,6 +51,8 @@ MODULES = (
     "mimamo_tpu_torch.serve",
     "mimamo_tpu_torch.cli",
     "mimamo_tpu_torch.torch_ref",
+    "mimamo_tpu_torch.parallel",
+    "mimamo_tpu_torch.dryrun",
     "chip_smoke",
 )
 
