@@ -333,13 +333,14 @@ def _two_ranks(argv, tmp_path, tag):
             cwd=REPO))
     try:
         outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
+        for p, err in zip(procs, errs):
+            err.seek(0)
+            assert p.returncode == 0, err.read()[-3000:]
     finally:
-        for p in procs:
+        for p, err in zip(procs, errs):
             p.kill()
-    for p, err in zip(procs, errs):
-        err.seek(0)
-        assert p.returncode == 0, err.read()[-3000:]
-        err.close()
+            p.wait()
+            err.close()
     return [[json.loads(x) for x in out.splitlines() if x.startswith("{")]
             for out in outs]
 
