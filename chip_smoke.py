@@ -126,24 +126,30 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      version on the 14 x 14 grid of the 112 backbone input;
  16. ``parallel``: data parallelism over ``torch.distributed``. A world of
      one over NCCL on the card: ``cli train --data-parallel --coordinator
-     127.0.0.1:<port> --num-processes 1 --process-id 0`` on a seeded
-     synthetic Aff-Wild2 corpus at the default fp32 config against plain
-     ``cli train`` (rows and checkpoint within 1e-6); ``predict_batch`` of 7
-     clips against ``predict_clips`` in bf16 and fp32 (within 1e-6), the
-     launches of one train step and one ``predict_batch`` on the rank, and
+     127.0.0.1:0 --num-processes 1 --process-id 0`` on a seeded synthetic
+     Aff-Wild2 corpus at the default fp32 config against plain ``cli
+     train`` (rows and checkpoint within 1e-6); ``predict_batch`` of 7
+     clips against ``predict_clips`` in bf16 and fp32 (within 1e-6), and
      the step and ``predict_batch`` times at a world of one beside the plain
-     ones. Two ranks sharing the card over gloo: ``python -m
-     mimamo_tpu_torch.dryrun --world 2`` (both ranks finish with identical
-     parameters, each step's loss within 1e-5 of a world-one step over the
-     same global batch, every check of the dry run within its bound),
-     ``cli eval --data-parallel`` on 2 ranks against one process (within
-     1e-6) and ``cli predict-corpus --data-parallel`` on 2 ranks over the
-     ``serve`` phase's 3 videos (disjoint videos, a manifest each; the
-     CSVs of one process within 1e-6);
+     ones (the cost of forming the group: every collective takes the local
+     path). Two ranks sharing the card over gloo, all started at once
+     through ``dryrun``'s launcher: the dry run (both ranks finish with
+     identical parameters after each step, each step's loss within 1e-5 of
+     a world-one step over the same global batch, the fine-tune step's
+     gradient as a whole, every check within its bound; its rank 0 counts
+     the launches of its train step and of its ``predict_batch`` per
+     dtype); ``cli train --data-parallel`` at the default fp32 config
+     against one process stepping the union of the two ranks' slices
+     (:func:`check_train_ranks`: rows, Adam's moments, BN stats, one log
+     row written by rank 0); ``cli eval --data-parallel`` against one
+     process (within 1e-6); ``cli predict-corpus --data-parallel`` over the
+     ``serve`` phase's 3 videos (disjoint videos, a manifest each; the CSVs
+     of one process within 1e-6);
  17. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
      gate's bound under ``tol_max_rel`` or ``tol_abs``, the launch counts of
-     each path, each variant's under ``launches_variant_<name>``, a rank's
-     under ``launches_parallel_train`` and ``launches_parallel_predict_batch``)
+     each path, each variant's under ``launches_variant_<name>``, rank 0's
+     of 2 under ``launches_parallel_train`` and
+     ``launches_parallel_predict_batch``)
      and, last, the device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
@@ -2425,38 +2431,26 @@ def check_convert(line: str) -> dict:
 PARALLEL_ATOL = 1e-6
 PARALLEL_LOSS_ATOL = 1e-5    # the 2-rank dry run's step against a world of 1
 PARALLEL_B = 7               # predict_batch's clips (padded to the world)
-PARALLEL_TIMEOUT = 300       # the phase's subprocesses, seconds
-
-
-def spawn(argv: list, tag: str, tmp: str) -> tuple:
-    """``python argv`` from the repo's root, its stderr into a file."""
-    err = open(os.path.join(tmp, tag + ".err"), "w+")
-    proc = subprocess.Popen([sys.executable] + argv, cwd=REPO,
-                            stdout=subprocess.PIPE, stderr=err, text=True,
-                            env=dict(os.environ, PYTHONPATH=REPO))
-    return proc, err
-
-
-def finish(procs: list) -> list:
-    """(exit code, JSON lines, stderr's tail) of each ``spawn``; every
-    process still running at the limit is killed."""
-    deadline = time.monotonic() + PARALLEL_TIMEOUT
-    results = []
-    try:
-        for proc, err in procs:
-            out, _ = proc.communicate(
-                timeout=max(deadline - time.monotonic(), 1.0))
-            err.seek(0)
-            results.append((proc.returncode,
-                            [json.loads(x) for x in out.splitlines()
-                             if x.startswith("{")], err.read()[-3000:]))
-    finally:
-        for proc, err in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            err.close()
-    return results
+PARALLEL_TIMEOUT = 300       # the phase's rank processes, seconds
+# cli train on 2 ranks against one process stepping the union of their
+# slices, 2 steps at lr 1e-6: Adam's first update moves an element whose
+# gradient is rounding noise by lr either way, with a sign that the
+# summation order decides, and at the default lr (1e-4) that moved the
+# second step's metrics by 6e-4 on the card. The ranks' phase stage runs
+# cuFFT on other batches than the one process, and on the card that moves
+# a few phase values across the +-pi wrap (PR 12's jumps between cuFFT
+# batches): the gradient then moves by a few percent while the temporal
+# step on the same inputs agrees to rounding. So the gates are set between
+# that noise and the faults they are for. Rows (rounded to 4 decimals);
+# Adam's first moments as one vector: cosine and norm ratio (a gradient
+# not divided by the world doubles the norm; local BatchNorm statistics
+# turn its direction); the temporal BN running stats (local statistics
+# move them by ~1e-2); every parameter within 2 lr a step.
+PARALLEL_LR = 1e-6
+PARALLEL_ROW_ATOL = 1e-4
+PARALLEL_MOMENT_COS = 0.95
+PARALLEL_MOMENT_NORM_TOL = 0.2
+PARALLEL_BN_ATOL = 1e-4
 
 
 def manifest_rows(root: str, pattern: str) -> list:
@@ -2488,21 +2482,95 @@ def wall_ms(fn, n: int) -> list:
     return times
 
 
+def train_union(root: str, world: int) -> tuple:
+    """What ``cli train --epochs 1 --lr PARALLEL_LR`` at the default config
+    does on ``world`` ranks, in one process on the card: each step over the
+    concatenation of the ranks' batches (``fit``'s draws, rank by rank).
+    Returns (the epoch's mean metrics, the model's state_dict, the
+    optimizer's state_dict)."""
+    cfg = dataclasses.replace(MimamoConfig(), train=TrainSpec(
+        epochs=1, learning_rate=PARALLEL_LR))
+    spec = cfg.train
+    ds = datasets.AffWild2Dataset(root, clip=cfg.clip)
+    local = spec.batch_size // world
+    steps = (len(ds) // world) // local
+    draws = [ds.batches(local, shuffle=True, seed=spec.seed,
+                        drop_remainder=True, process_id=r,
+                        process_count=world) for r in range(world)]
+    model = Mimamo(cfg)
+    model.load_state_dict(weights.init_variables(cfg, spec.seed))
+    st = train.create_train_state(model, total_steps=steps)
+    step = train.make_train_step(model)
+    agg = {}
+    for _ in range(steps):
+        parts = [next(d) for d in draws]
+        _, metrics = step(st, {k: np.concatenate([p[k] for p in parts])
+                               for k in parts[0]})
+        for k, v in metrics.items():
+            agg[k] = agg.get(k, 0.0) + float(v) / steps
+    agg["steps"] = steps
+    return agg, model.state_dict(), st.optimizer.state_dict()
+
+
+def check_train_ranks(ckpt: str, results: list, union: tuple) -> dict:
+    """``cli train`` on 2 ranks (``results``, checkpoint and log under
+    ``ckpt``) against :func:`train_union`."""
+    want, want_model, want_opt = union
+    rows = [res.lines[-1] if res.rc == 0 and res.lines else None
+            for res in results]
+    report = {"rows": rows, "one_process": want}
+    if None in rows or not os.path.isdir(ckpt):
+        return report
+    saved = checkpoints.load(ckpt)
+    with open(ckpt + ".metrics.jsonl") as f:
+        log = [json.loads(x) for x in f]
+    moments = saved["optimizer"]["state"]
+    report.update({
+        "rows_equal": all({k: v for k, v in r.items() if k != "sec"}
+                          == {k: v for k, v in rows[0].items() if k != "sec"}
+                          for r in rows),
+        "log_rows": len(log),
+        "steps": [rows[0]["steps"], want["steps"], saved["step"]],
+        "row_max_abs": max(abs(rows[0][k] - want[k])
+                           for k in ("loss", "ccc_v", "ccc_a")),
+        "adam_m_cos_norm_ratio": dryrun.grad_agreement(
+            {i: moments[i]["exp_avg"].cpu() for i in want_opt["state"]},
+            {i: m["exp_avg"].cpu() for i, m in want_opt["state"].items()}),
+        "bn_stats_max_abs": state_diff(saved["model"], want_model, [
+            k for k in want_model if "running" in k]),
+        "params_max_abs": state_diff(saved["model"], want_model, [
+            k for k in want_model if "running" not in k
+            and "num_batches" not in k])})
+    return report
+
+
+def train_ranks_ok(r: dict) -> bool:
+    lr = PARALLEL_LR
+    return ("rows_equal" in r and r["rows_equal"] and r["log_rows"] == 1
+            and len(set(r["steps"])) == 1 and r["steps"][0] >= 2
+            and r["row_max_abs"] <= PARALLEL_ROW_ATOL
+            and r["adam_m_cos_norm_ratio"][0] >= PARALLEL_MOMENT_COS
+            and abs(r["adam_m_cos_norm_ratio"][1] - 1)
+            <= PARALLEL_MOMENT_NORM_TOL
+            and r["bn_stats_max_abs"] <= PARALLEL_BN_ATOL
+            and r["params_max_abs"] <= 2 * lr * r["steps"][0] + 1e-6)
+
+
 def check_parallel(state: dict, line: str) -> dict:
-    """Data parallelism (docstring item 16). Returns the launches of one
-    train step (``"train"``) and of one ``predict_batch`` per dtype
-    (``"predict_batch"``) on a rank of a world of one."""
-    from mimamo_tpu_torch import cli
+    """Data parallelism (docstring item 16). Returns rank 0's row of the
+    2-rank dry run, whose ``launches_train`` and ``launches_predict_batch``
+    are that rank's launches in one train step and one ``predict_batch``
+    per dtype."""
     report = {"card": line}
     rng = np.random.default_rng(SEED + 50)
     with tempfile.TemporaryDirectory() as tmp:
         media = slice_media(tmp)
         root = media["aff"]
         rows, saved = {}, {}
+        # port 0: a world of one needs no peer to find its store
         for name, flags in (("plain", []), ("world1", [
-                "--data-parallel", "--coordinator",
-                f"127.0.0.1:{dryrun.free_port()}", "--num-processes", "1",
-                "--process-id", "0"])):
+                "--data-parallel", "--coordinator", "127.0.0.1:0",
+                "--num-processes", "1", "--process-id", "0"])):
             ckpt = os.path.join(tmp, name)
             rows[name] = run_cli(["train", "--dataset", "affwild2", "--root",
                                   root, "--epochs", "1", "--ckpt", ckpt]
@@ -2518,9 +2586,9 @@ def check_parallel(state: dict, line: str) -> dict:
             == [r["steps"] for r in rows["world1"]],
             "ckpt_max_abs": state_diff(saved["world1"], saved["plain"])}
 
-        # the group's cost at a world of one over NCCL, the plain path beside
-        group = parallel.initialize_distributed(
-            f"127.0.0.1:{dryrun.free_port()}", 1, 0)
+        # the cost of forming the group: a world of one over NCCL (every
+        # collective takes the local path), the plain path beside it
+        group = parallel.initialize_distributed("127.0.0.1:0", 1, 0)
         with group:
             probe = torch.ones(3, device=group.device)
             torch.distributed.all_reduce(probe)
@@ -2535,8 +2603,6 @@ def check_parallel(state: dict, line: str) -> dict:
             step_g = train.make_train_step(model_g, group)
             step_p(st_p, batch)                              # warm-up
             step_g(st_g, batch)
-            _, train_launches = counted(lambda: step_g(st_g, batch),
-                                        expected_launches(fp32=True))
             times = {"plain": [], "world1": []}
             for name in ("plain", "world1", "world1", "plain"):
                 step, st = ((step_p, st_p) if name == "plain"
@@ -2547,15 +2613,13 @@ def check_parallel(state: dict, line: str) -> dict:
             del model_g, st_g, st_p
             clips = rng.integers(0, 256, (PARALLEL_B, T, S, S, 3),
                                  dtype=np.uint8)
-            pb_launches, report["predict_batch"] = {}, {}
+            report["predict_batch"] = {}
             for dtype in ("bfloat16", "float32"):
                 model = Mimamo(MimamoConfig(backbone=BackboneSpec(
                     dtype=dtype)))
                 model.load_state_dict(state)
                 want = model.predict_clips(clips)
-                got, pb_launches[dtype] = counted(
-                    lambda: model.predict_batch(clips, group),
-                    expected_launches(fp32=dtype == "float32"))
+                got = model.predict_batch(clips, group)
                 times = {"plain": [], "world1": []}
                 for name in ("plain", "world1", "world1", "plain"):
                     fn = ((lambda: model.predict_clips(clips))
@@ -2571,9 +2635,11 @@ def check_parallel(state: dict, line: str) -> dict:
                 del model
         torch.cuda.empty_cache()
 
-        # two ranks sharing the card (gloo): the dry run, cli eval and
-        # cli predict-corpus (each clip alone in its batch, as in one
-        # process), one process of each command beside them
+        # two ranks sharing the card (gloo), all started at once: the dry
+        # run, cli train, cli eval and cli predict-corpus (each clip alone
+        # in its batch, as in one process); one process of each command
+        # beside them
+        train_ckpt = os.path.join(tmp, "two_train")
         eval_argv = ["eval", "--dataset", "affwild2", "--root", root,
                      "--ckpt", os.path.join(tmp, "plain"),
                      "--batch-streams", "1"]
@@ -2581,31 +2647,34 @@ def check_parallel(state: dict, line: str) -> dict:
                        os.path.join(media["dir"], "*.mp4"), "--ckpt",
                        os.path.join(tmp, "plain"), "--no-native", "--batch",
                        "1", "--out-dir"]
-
-        def two_ranks(argv: list, tag: str) -> list:
-            port = dryrun.free_port()
-            return [spawn(["-m", "mimamo_tpu_torch.cli"] + argv + CLI_FLAGS
-                          + ["--data-parallel", "--coordinator",
-                             f"127.0.0.1:{port}", "--num-processes", "2",
-                             "--process-id", str(r)], f"{tag}{r}", tmp)
-                    for r in (0, 1)]
-
+        # eight rank processes and this one share the host's cores: one
+        # thread each
+        kw = {"timeout": PARALLEL_TIMEOUT,
+              "env": dict(os.environ, OMP_NUM_THREADS="1")}
         t = time.perf_counter()
-        procs = ([spawn(["-m", "mimamo_tpu_torch.dryrun", "--world", "2"],
-                        "dryrun", tmp)] + two_ranks(eval_argv, "eval")
-                 + two_ranks(corpus_argv + [os.path.join(tmp, "two")],
-                             "corpus"))
+        launched = {
+            "dryrun": dryrun.start(2, **kw),
+            "train": dryrun.cli_ranks(
+                ["train", "--dataset", "affwild2", "--root", root,
+                 "--epochs", "1", "--lr", str(PARALLEL_LR), "--ckpt",
+                 train_ckpt] + CLI_FLAGS, 2, **kw),
+            "eval": dryrun.cli_ranks(eval_argv + CLI_FLAGS, 2, **kw),
+            "corpus": dryrun.cli_ranks(
+                corpus_argv + [os.path.join(tmp, "two")] + CLI_FLAGS, 2,
+                **kw)}
         try:
             (one,) = run_cli(eval_argv)
             (corpus_one,) = run_cli(corpus_argv + [os.path.join(tmp, "one")])
+            union = train_union(root, 2)
         finally:
-            (dry_rc, dry_rows, dry_err), *ranks = finish(procs)
+            results = {k: ranks.wait() for k, ranks in launched.items()}
         report["world2_s"] = time.perf_counter() - t
-        evals, corpus = ranks[:2], ranks[2:]
-
+        report["train_two_ranks"] = check_train_ranks(
+            train_ckpt, results["train"], union)
+        corpus = results["corpus"]
         report["corpus_two_ranks"] = {
-            "summaries": [lines[-1] if lines else None
-                          for _, lines, _ in corpus],
+            "summaries": [res.lines[-1] if res.lines else None
+                          for res in corpus],
             "manifest": manifest_rows(tmp, "two/manifest.p*.jsonl"),
             "one_process": corpus_one,
             "one_process_manifest": manifest_rows(tmp, "one/manifest.jsonl"),
@@ -2613,10 +2682,11 @@ def check_parallel(state: dict, line: str) -> dict:
                 os.path.join(tmp, "two", f"v{i}.csv"),
                 os.path.join(tmp, "one", f"v{i}.csv"))
                 for i in range(len(CORPUS_T)))}
-    report["dryrun"] = {"rc": dry_rc, "rows": dry_rows}
+    dry_rows = dryrun.rows(results["dryrun"])
+    report["dryrun"] = dry_rows
     report["eval_one_process"] = one
-    report["eval_two_ranks"] = [lines[-1] if lines else None
-                                for _, lines, _ in evals]
+    report["eval_two_ranks"] = [res.lines[-1] if res.lines else None
+                                for res in results["eval"]]
     report["eval_two_ranks_vs_one_max_abs"] = max(
         (abs(r[k] - one[k]) if r else float("inf"))
         for r in report["eval_two_ranks"]
@@ -2624,6 +2694,7 @@ def check_parallel(state: dict, line: str) -> dict:
     print(json.dumps({"parallel_phase": report}), flush=True)
     w1 = report["cli_train_world1_vs_plain"]
     co = report["corpus_two_ranks"]
+    sub = lambda d: {k: d[k] for k in dryrun.KERNELS}  # noqa: E731
     ok = (report["world1"]["backend"] == "nccl"
           and report["world1"]["all_reduce_ok"]
           and w1["rows_max_abs"] <= PARALLEL_ATOL and w1["steps_equal"]
@@ -2631,29 +2702,36 @@ def check_parallel(state: dict, line: str) -> dict:
           and all(r["shape"] == [PARALLEL_B, T, 2]
                   and r["vs_predict_clips_max_abs"] <= PARALLEL_ATOL
                   for r in report["predict_batch"].values())
-          and dry_rc == 0 and len(dry_rows) == 2
+          and None not in dry_rows and len(dry_rows) == 2
           and all(r["ok"] and r["backend"] == "gloo"
-                  and max(r["time_loss_world1_abs"],
-                          r["batch_loss_world1_abs"]) <= PARALLEL_LOSS_ATOL
+                  and max(r[f"{s}_loss_world1_abs"] for s in dryrun.STEPS)
+                  <= PARALLEL_LOSS_ATOL
+                  and r["launches_train"] == sub(expected_launches(
+                      fp32=True))
+                  and r["launches_predict_batch"]["float32"]
+                  == sub(expected_launches(fp32=True))
+                  and r["launches_predict_batch"]["bfloat16"]
+                  == sub(expected_launches())
                   for r in dry_rows)
-          and len({r["params_sha256"] for r in dry_rows}) == 1
-          and all(rc == 0 for rc, _, _ in evals)
+          and dryrun.same_params(dry_rows)
+          and train_ranks_ok(report["train_two_ranks"])
+          and all(res.rc == 0 for res in results["eval"])
           and all(r is not None and r["n_frames"] == one["n_frames"]
                   for r in report["eval_two_ranks"])
           and report["eval_two_ranks_vs_one_max_abs"] <= PARALLEL_ATOL
-          and all(rc == 0 for rc, _, _ in corpus)
+          and all(res.rc == 0 for res in corpus)
           and [r and r["videos"] for r in co["summaries"]] == [2, 1]
           and co["manifest"] == co["one_process_manifest"]
           and len(co["manifest"]) == len(CORPUS_T)
           and co["one_process"]["videos"] == len(CORPUS_T)
           and co["csv_vs_one_max_abs"] <= SLICE_ATOL)
     if not ok:
-        for tag, (_, _, err) in zip(
-                ("dryrun", "eval0", "eval1", "corpus0", "corpus1"),
-                [(dry_rc, dry_rows, dry_err)] + ranks):
-            print(f"{tag} stderr: {err}", file=sys.stderr)
+        for tag, ranks in results.items():
+            for r, res in enumerate(ranks):
+                print(f"{tag}{r} (exit {res.rc}) stderr: {res.err}",
+                      file=sys.stderr)
         raise AssertionError(f"parallel phase: {report}")
-    return {"train": train_launches, "predict_batch": pb_launches}
+    return dry_rows[0]
 
 
 def main() -> int:
@@ -2802,12 +2880,13 @@ def main() -> int:
 
     # -- data parallelism -------------------------------------------------
     t = time.perf_counter()
-    par = check_parallel(state, line)
+    rank0 = check_parallel(state, line)
     print(json.dumps({"parallel_s": time.perf_counter() - t}), flush=True)
-    for rec in recs:
-        rec["launches_parallel_train"] = par["train"][rec["name"]]
+    for rec in recs:           # rank 0 of 2; the dots kernels are not there
+        rec["launches_parallel_train"] = rank0["launches_train"].get(
+            rec["name"], 0)
         rec["launches_parallel_predict_batch"] = {
-            dtype: par["predict_batch"][dtype][rec["name"]]
+            dtype: rank0["launches_predict_batch"][dtype].get(rec["name"], 0)
             for dtype in ("bfloat16", "float32")}
     recs += crop_recs + variant_recs
     print(json.dumps({"smoke_s": time.perf_counter() - t_start}), flush=True)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import os
 import socket
 from typing import Any, Iterable, Optional, Sequence
 
@@ -87,6 +88,10 @@ def initialize_distributed(coordinator: Optional[str] = None,
     when every rank holds a card of its own, gloo otherwise. Raises when
     the group does not form within ``timeout`` seconds.
 
+    Rank 0 serves the coordinator's store, unless the environment holds
+    ``TORCHELASTIC_USE_AGENT_STORE=True``: then a launcher serves it (as
+    torchrun's agent does, and ``dryrun.Ranks``) and every rank is a client.
+
     Without a coordinator: a world of one on ``device`` (None: the card,
     as ``runner.resolve_device``), with no process group."""
     if coordinator is None:
@@ -116,8 +121,10 @@ def initialize_distributed(coordinator: Optional[str] = None,
         torch.cuda.set_device(dev)
     wait = datetime.timedelta(seconds=timeout)
     try:
+        held = os.environ.get("TORCHELASTIC_USE_AGENT_STORE") == "True"
         store = dist.TCPStore(host, int(port), num_processes,
-                              is_master=process_id == 0, timeout=wait)
+                              is_master=process_id == 0 and not held,
+                              timeout=wait)
         card = (f"{socket.gethostname()}/{dev}" if dev.type == "cuda"
                 else "cpu")
         store.set(f"card/{process_id}", card)

@@ -14,6 +14,11 @@ small config; each check reads their saved results:
     |p|, every element within 2 lr (Adam's first update moves an element
     whose gradient is rounding noise by up to lr either way, see
     ``test_torch_train``); BN running stats atol 1e-5;
+  * the fine-tune step (``remat_backbone``: the backbone's synced
+    BatchNorms, their collectives reissued by the recompute) against the
+    JAX sharded fine-tune step, at ``test_torch_train``'s fine-tune
+    bounds: loss 1e-4, backbone BN stats max-rel 1e-3, the gradient as a
+    whole (cosine >= 0.99, norms within 1%);
   * ``predict_batch`` of 5 clips against JAX ``predict_batch`` on the
     mesh, atol 1e-5;
   * the slot-split session (1 and 2 GRU layers) against the JAX session
@@ -23,7 +28,7 @@ small config; each check reads their saved results:
     identical after the step; each rank's own checks against a world of
     one.
 Also ``pad_to_multiple`` and ``shard_paths`` against JAX's, the CLI's
-multi-process exits, a group that does not form, and the command line in
+multi-process exits, a group whose rank 0 never joins, and the command line in
 two processes: ``eval --data-parallel`` against one process (1e-6) and
 JAX ``evaluate_affwild2`` (1e-5), ``train`` against one process stepping
 the union of the two slices, ``predict-corpus`` against one process.
@@ -34,8 +39,6 @@ import functools
 import glob
 import json
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -94,8 +97,9 @@ def ranks(tmp_path_factory):
             _jax_config(dryrun.config(variant)), seed)
         torch.save(weights.from_jax_variables(variables[variant]),
                    str(root / f"{variant}.pt"))
-    rows = dryrun.launch(WORLD, cpu=True, weights_dir=str(root),
-                         out_dir=str(root), timeout=TIMEOUT_S, env=ENV)
+    rows = dryrun.rows(dryrun.start(WORLD, cpu=True, weights_dir=str(root),
+                                    out_dir=str(root), timeout=TIMEOUT_S,
+                                    env=ENV).wait())
     assert all(row is not None for row in rows), rows
     raw = [torch.load(str(root / f"rank{r}.pt"), weights_only=False)
            for r in range(WORLD)]
@@ -108,10 +112,11 @@ def mesh():
     return jparallel.make_mesh(jax.devices()[:WORLD])
 
 
-def _jax_step(axis, variables, batch, mesh):
-    """The JAX step on the mesh over the global batch: metrics, gradients
-    (captured ahead of Adam), new weights under the port's names."""
-    cfg = _jax_config(dryrun.config("flagship", axis))
+def _jax_step(step, variables, batch, mesh):
+    """The JAX step (``dryrun.STEPS``) on the mesh over the global batch:
+    metrics, gradients (captured ahead of Adam), new weights under the
+    port's names."""
+    cfg = _jax_config(dryrun.config("flagship", step))
     model = JaxMimamo(cfg)
     tx = optax.chain(_capture(), jtrain.make_optimizer(cfg))
     state, tx = jtrain.create_train_state(model, jax.random.PRNGKey(0),
@@ -142,7 +147,7 @@ def test_train_step_matches_jax_sharded(ranks, mesh, axis):
         got = raw[axis]
         for k in ("loss", "ccc_v", "ccc_a"):
             assert abs(got["metrics"][k] - want["metrics"][k]) <= 1e-5, k
-        pg = {f"temporal.{k}": g for k, g in got["grads"].items()}
+        pg = got["grads"]
         assert set(pg) == set(jg)
         for k, g in jg.items():
             gmax = float(g.abs().max())
@@ -159,6 +164,26 @@ def test_train_step_matches_jax_sharded(ranks, mesh, axis):
                                            err_msg=k)
             elif k.startswith("backbone."):       # frozen
                 assert torch.equal(got["state"][k], v), k
+
+
+def test_finetune_step_matches_jax_sharded(ranks, mesh):
+    data = ranks["data"]
+    want = _jax_step("finetune", ranks["variables"]["flagship"],
+                     {"clips": data["clips"], "labels": data["labels"],
+                      "mask": data["mask"]}, mesh)
+    jg = {**_jax_grads(want, "temporal"), **_jax_grads(want, "backbone")}
+    jg = {k: v for k, v in jg.items() if not k.startswith("backbone.fc.")}
+    for raw in ranks["raw"]:
+        got = raw["finetune"]
+        assert abs(got["metrics"]["loss"] - want["metrics"]["loss"]) <= 1e-4
+        assert set(got["grads"]) == set(jg)
+        cos, ratio = dryrun.grad_agreement(got["grads"], jg)
+        assert cos >= 0.99 and abs(ratio - 1) <= 1e-2, (cos, ratio)
+        for k, v in want["state"].items():
+            if k.startswith("backbone.") and "running" in k:
+                rel = float((got["state"][k] - v).abs().max()
+                            / v.abs().max())
+                assert rel <= 1e-3, k
 
 
 def test_predict_batch_matches_jax_sharded(ranks, mesh):
@@ -213,20 +238,25 @@ def test_host_allgather_f64_is_bit_exact(ranks):
 
 
 def test_ranks_hold_identical_parameters(ranks):
-    assert len({row["params_sha256"] for row in ranks["rows"]}) == 1
-    a, b = (raw["time"]["state"] for raw in ranks["raw"])
-    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert dryrun.same_params(ranks["rows"])
+    for step in dryrun.STEPS:
+        a, b = (raw[step]["state"] for raw in ranks["raw"])
+        assert all(torch.equal(a[k], b[k]) for k in a), step
 
 
 def test_ranks_agree_with_a_world_of_one(ranks):
-    """Each rank's own checks: the step against the same step at a world
-    of one on the whole batch, ``predict_batch`` (also at stride 2 and
-    micro-only) against ``predict_clips``, the split session against an
-    unsplit one, all within the dry run's bounds, on gloo CPU ranks."""
+    """Each rank's own checks: each step against the same step at a world
+    of one on the whole batch, ``predict_batch`` (also at stride 2,
+    micro-only and in bf16) against ``predict_clips``, the split session
+    against an unsplit one, all within the dry run's bounds, on gloo CPU
+    ranks; the launch counts are there (0 on the CPU)."""
     for r, row in enumerate(ranks["rows"]):
         assert (row["rank"], row["world"], row["backend"], row["device"]) \
             == (r, WORLD, "gloo", "cpu")
         assert row["ok"], row
+        assert set(row["launches_train"]) == set(dryrun.KERNELS)
+        assert sorted(row["launches_predict_batch"]) == ["bfloat16",
+                                                         "float32"]
 
 
 # -- the helpers and the group ---------------------------------------------
@@ -269,12 +299,14 @@ def test_augmentation_of_a_rank_is_its_rows_of_the_global_batch():
 
 
 def test_group_that_does_not_form_raises():
-    """Rank 1 of 2 whose coordinator never comes up raises; it does not
-    run on alone."""
+    """Rank 1 of 2 whose rank 0 never joins the coordinator's store raises;
+    it does not run on alone. (The store is this test's own, on a port the
+    system picks, so no other run can answer there.)"""
+    store = torch.distributed.TCPStore("127.0.0.1", 0, None, is_master=True,
+                                       wait_for_workers=False)
     with pytest.raises(RuntimeError, match="did not form"):
         parallel.initialize_distributed(
-            f"127.0.0.1:{dryrun.free_port()}", 2, 1, device="cpu",
-            timeout=2.0)
+            f"127.0.0.1:{store.port}", 2, 1, device="cpu", timeout=2.0)
 
 
 def test_rank_without_a_card_raises(monkeypatch):
@@ -317,32 +349,14 @@ def test_multiprocess_exits(argv, text):
     assert text in str(e.value.code)
 
 
-def _two_ranks(argv, tmp_path, tag):
+def _two_ranks(argv):
     """``cli`` ``argv`` in two processes of one group: each one's JSON
     lines."""
-    port = dryrun.free_port()
-    procs, errs = [], []
-    for pid in range(WORLD):
-        err = open(str(tmp_path / f"{tag}{pid}.err"), "w+")
-        errs.append(err)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "mimamo_tpu_torch.cli"] + argv
-            + ["--data-parallel", "--coordinator", f"127.0.0.1:{port}",
-               "--num-processes", str(WORLD), "--process-id", str(pid)]
-            + SMALL, stdout=subprocess.PIPE, stderr=err, text=True, env=ENV,
-            cwd=REPO))
-    try:
-        outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
-        for p, err in zip(procs, errs):
-            err.seek(0)
-            assert p.returncode == 0, err.read()[-3000:]
-    finally:
-        for p, err in zip(procs, errs):
-            p.kill()
-            p.wait()
-            err.close()
-    return [[json.loads(x) for x in out.splitlines() if x.startswith("{")]
-            for out in outs]
+    results = dryrun.cli_ranks(argv + SMALL, WORLD, env=ENV,
+                               timeout=TIMEOUT_S).wait()
+    for res in results:
+        assert res.rc == 0, res.err
+    return [res.lines for res in results]
 
 
 @pytest.fixture(scope="module")
@@ -372,7 +386,7 @@ def test_two_process_eval_matches_one_and_jax(aff, tmp_path, capsys):
     CCC) and of JAX ``evaluate_affwild2``."""
     argv = ["eval", "--dataset", "affwild2", "--root", aff["root"],
             "--ckpt", aff["ckpt"], "--batch-streams", "1"]
-    rows = [lines[-1] for lines in _two_ranks(argv, tmp_path, "eval")]
+    rows = [lines[-1] for lines in _two_ranks(argv)]
     assert cli.main(argv + SMALL) == 0
     one = json.loads(capsys.readouterr().out.splitlines()[-1])
     want = jeval.evaluate_affwild2(
@@ -396,7 +410,7 @@ def test_two_process_train_matches_one_process(aff, tmp_path):
     argv = ["train", "--dataset", "affwild2", "--root", aff["root"],
             "--batch", "24", "--epochs", "1", "--lr", "1e-3", "--ckpt", ckpt,
             "--eval-root", aff["root"]]
-    rows = [lines[-1] for lines in _two_ranks(argv, tmp_path, "train")]
+    rows = [lines[-1] for lines in _two_ranks(argv)]
     rows[1]["sec"] = rows[0]["sec"]             # each process's own clock
     assert rows[0] == rows[1] and rows[0]["steps"] == 1
     cfg = dataclasses.replace(aff["cfg"], train=dataclasses.replace(
@@ -427,7 +441,7 @@ def test_two_process_train_matches_one_process(aff, tmp_path):
     assert abs(rows[0]["val_mean_ccc"] - ev["mean_ccc"]) <= 1e-4
     # every rank resumes from rank 0's checkpoint and steps on from it
     again = [lines[-1] for lines in _two_ranks(
-        argv[:-2] + ["--resume"], tmp_path, "resume")]
+        argv[:-2] + ["--resume"])]
     again[1]["sec"] = again[0]["sec"]
     assert again[0] == again[1] and np.isfinite(again[0]["loss"])
     assert checkpoints.latest_step(ckpt) == 2
@@ -447,8 +461,7 @@ def test_two_process_corpus_matches_one_process(aff, tmp_path):
     out = tmp_path / "two"
     sums = [lines[-1] for lines in _two_ranks(
         ["predict-corpus", "--videos", str(videos / "*.mp4"), "--out-dir",
-         str(out), "--batch", "2", "--no-native", "--ckpt", aff["ckpt"]],
-        tmp_path, "corpus")]
+         str(out), "--batch", "2", "--no-native", "--ckpt", aff["ckpt"]])]
     assert [s["videos"] for s in sums] == [2, 1]
     one = str(tmp_path / "one")
     paths = sorted(glob.glob(str(videos / "*.mp4")))
