@@ -77,7 +77,8 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      ``predict`` of the video and of 300 crops against ``MimamoAPI``
      (<= 1e-6, with launch counts), ``extract`` against ``VideoProcessor``
      and ``FeatureExtractor``, ``eval --batch-streams 8`` against 1 (<
-     1e-4), ``train`` for one epoch and its checkpoint restored.
+     1e-4), ``train`` for one epoch and its checkpoint restored, ``train
+     --tensorboard`` and ``train --debug-nans`` (item 17).
      ``corpus``: ``predict-corpus`` with the Python loader and, where
      ``io.native_loader`` builds the native library at first use, the
      native one (the build's outcome reported either way; each run's
@@ -145,11 +146,33 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      process (within 1e-6); ``cli predict-corpus --data-parallel`` over the
      ``serve`` phase's 3 videos (disjoint videos, a manifest each; the CSVs
      of one process within 1e-6);
- 17. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
+ 17. ``a16b``: the JAX package's last modules. The torchvision stride
+     placement (``FoldedResNet50(stride_in_1x1=False)``) in bf16 at B x T
+     frames: one backbone call launches the stem once and layer2 3 times
+     (block 0 strides its 3x3 conv, a function the kernel does not compute,
+     and runs as cuDNN convs), the layer2 kernel's stride-1 tail against
+     ``layer2_plain`` (record ``layer2_tail``), the backbone's time beside
+     the default placement's, and in fp32 the card against the CPU on one
+     clip x 8 frames (the ``fp32`` phase's gates). bf16 fine-tuning at the
+     default geometry (4 x 48 frames, remat): one step against the fp32
+     step on the same batch (the backbone gradient by direction and norm),
+     2 steps move the weights and BN stats, ``predict_clips`` of the
+     refolded weights (phase 1, stem 1, layer2 4), step times and peak
+     memory of both dtypes. ``pyramid.build`` -> ``reconstruct`` on B x T
+     frames (rel-err < 1e-3), the pyramid card against CPU. Both examples
+     (``python -m mimamo_tpu_torch.examples.demo`` / ``serve_client``) as
+     processes on the card: exit 0 and their files. (The ``cli`` phase runs
+     ``train --tensorboard``, its scalars read back against the printed
+     rows, and ``train --debug-nans``: against the plain run, the checked
+     step's time beside the plain step's, a planted NaN raising
+     ``FloatingPointError``.)
+ 18. prints ``{"kernels": [...]}`` (``max_rel_err``, ``max_abs_err`` and the
      gate's bound under ``tol_max_rel`` or ``tol_abs``, the launch counts of
      each path, each variant's under ``launches_variant_<name>``, rank 0's
      of 2 under ``launches_parallel_train`` and
-     ``launches_parallel_predict_batch``)
+     ``launches_parallel_predict_batch``, the stride variant's backbone call
+     under ``launches_stride_variant``, ``predict_clips`` after a bf16
+     fine-tune under ``launches_finetune_bf16_predict``)
      and, last, the device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
@@ -174,8 +197,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from mimamo_tpu_torch import (StreamingSession, api, checkpoints, dryrun,
-                              parallel, phase, preprocess, pyramid, train,
-                              weights)
+                              parallel, phase, preprocess, pyramid, summary,
+                              train, weights)
+from mimamo_tpu_torch.backbone import (FoldedResNet50, ResNet50,
+                                       fold_batchnorm)
 from mimamo_tpu_torch.bench import layer1_probe, layer2_probe
 from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
                                             PEAK_BYTES_PER_S,
@@ -1621,7 +1646,9 @@ def check_cli(state: dict, cfg: MimamoConfig, ckpt: str, media: dict,
     --boxes --out`` and ``predict --crops`` against ``MimamoAPI``,
     ``extract`` against ``VideoProcessor`` and ``FeatureExtractor``,
     ``eval --batch-streams 8`` against ``--batch-streams 1``, ``train``
-    for one epoch and its checkpoint restored by ``MimamoAPI``. Returns
+    for one epoch and its checkpoint restored by ``MimamoAPI``, ``train
+    --tensorboard`` (:func:`cli_tensorboard`) and ``train --debug-nans``
+    (:func:`cli_debug_nans`). Returns
     the launches of one ``cli predict`` of the 120-frame video (one
     forward)."""
     report = {"card": line}
@@ -1700,6 +1727,9 @@ def check_cli(state: dict, cfg: MimamoConfig, ckpt: str, media: dict,
             for k, v in saved.items())
         steps = train_rows[0]["steps"] if train_rows else 0
         report["cli_train_ckpt_step"] = checkpoints.latest_step(trained)
+        report["cli_train_tensorboard"] = cli_tensorboard(media, tmp)
+        report["cli_train_debug_nans"] = cli_debug_nans(state, cfg, media,
+                                                        saved, tmp)
     report["launches_cli_predict"] = launches
     print(json.dumps(report), flush=True)
     pr, ex = report["cli_predict"], report["cli_extract"]
@@ -1714,9 +1744,68 @@ def check_cli(state: dict, cfg: MimamoConfig, ckpt: str, media: dict,
             and len(train_rows) == 1 and steps > 0
             and np.isfinite(train_rows[0]["loss"])
             and report["cli_train_ckpt_step"] == steps
-            and report["cli_train_restore_max_abs"] == 0.0):
+            and report["cli_train_restore_max_abs"] == 0.0
+            and report["cli_train_tensorboard"]["ok"]
+            and report["cli_train_debug_nans"]["ok"]):
         raise AssertionError(f"cli phase: {report}")
     return launches
+
+
+def cli_tensorboard(media: dict, tmp: str) -> dict:
+    """``cli train --tensorboard`` for one epoch: the event file read back
+    (``summary.read_events``) holds the file version and, at step = epoch,
+    each numeric key of the printed row but ``epoch``, equal to it as a
+    float32."""
+    tb = os.path.join(tmp, "tb")
+    rows = run_cli(["train", "--dataset", "affwild2", "--root",
+                    media["aff"], "--epochs", "1", "--tensorboard", tb])
+    (path,) = glob.glob(os.path.join(tb, "events.out.tfevents.*"))
+    events = summary.read_events(path)
+    got = [(e["step"], k, v) for e in events[1:]
+           for k, v in e.get("values", {}).items()]
+    want = [(r["epoch"], k, float(np.float32(v))) for r in rows
+            for k, v in r.items()
+            if isinstance(v, (int, float)) and k != "epoch"]
+    return {"events": len(events), "scalars": len(got),
+            "ok": (events[0].get("file_version") == "brain.Event:2"
+                   and len(rows) == 1 and got == want)}
+
+
+def cli_debug_nans(state: dict, cfg: MimamoConfig, media: dict,
+                   plain_ckpt: dict, tmp: str) -> dict:
+    """``cli train --debug-nans`` for one epoch against the plain run
+    (rows and checkpoint within 1e-6: two fp32 runs on the card); the
+    frozen train step (4 x 48) with the NaN checks beside the plain one
+    (host clock, median of 3 in turns); a NaN planted in the temporal
+    head's weight raises ``FloatingPointError`` in the checked step."""
+    ckpt = os.path.join(tmp, "debug_nans")
+    rows = run_cli(["train", "--dataset", "affwild2", "--root",
+                    media["aff"], "--epochs", "1", "--ckpt", ckpt,
+                    "--debug-nans"])
+    report = {"rows": rows, "ckpt_vs_plain_max_abs": state_diff(
+        checkpoints.load(ckpt)["model"], plain_ckpt)}
+    batch = next(datasets.AffWild2Dataset(media["aff"], clip=cfg.clip)
+                 .batches(cfg.train.batch_size))
+    model, st, plain = _train_model(state)
+    checked = train.make_train_step(model, debug_nans=True)
+    plain(st, batch)                                        # warm-ups
+    checked(st, batch)
+    times = {"plain": [], "debug_nans": []}
+    for _ in range(3):
+        for name, step in (("plain", plain), ("debug_nans", checked)):
+            times[name] += step_ms(step, st, batch, 1)
+    report["step_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    with torch.no_grad():
+        model.temporal.head.weight[0, 0] = float("nan")
+    try:
+        checked(st, batch)
+        report["nan_raised"] = None
+    except FloatingPointError as e:
+        report["nan_raised"] = str(e)
+    report["ok"] = (len(rows) == 1 and rows[0]["steps"] > 0
+                    and report["ckpt_vs_plain_max_abs"] <= SLICE_ATOL
+                    and "temporal.head" in (report["nan_raised"] or ""))
+    return report
 
 
 def check_corpus(ckpt: str, media: dict, line: str) -> None:
@@ -2734,6 +2823,321 @@ def check_parallel(state: dict, line: str) -> dict:
     return dry_rows[0]
 
 
+# -- the JAX package's last modules: the torchvision stride placement, bf16
+# fine-tuning, the pyramid's build / reconstruct, the examples ---------------
+
+A16B_CLIP_T = 8              # frames of the stride variant's card-vs-CPU clip
+A16B_EXAMPLES_TIMEOUT = 300  # seconds, each example's process
+# The bf16 fine-tune step against the fp32 step on the same batch and
+# weights (PERF.md §6). The gradient's direction moves far with bf16's
+# rounding (seen on an H100: backbone cosine 0.076, temporal 0.94), while
+# an fp32 step on clips moved by 1e-3 keeps it (0.998): the fp32 step on
+# clips moved by FINETUNE_PERTURB, the size of bf16's rounding of the
+# backbone input (its spacing at 128..255 is 1), is reported beside it.
+# What is held: the loss, the norms of the backbone's and the temporal
+# gradients, and the temporal gradient's direction.
+FINETUNE_PERTURB = 0.5
+FINETUNE_BF16_LOSS_ATOL = 1e-2
+FINETUNE_BF16_COS = 0.8
+FINETUNE_BF16_NORM_TOL = 5e-2
+PYRAMID_REC_TOL = 1e-3       # reconstruction rel-err (tests/test_pyramid.py)
+PYRAMID_CARD_CPU_TOL = 1e-5  # bands, high, low: max |d| / max |CPU|
+
+
+def stride_backbone(state: dict, dtype: str, device: str):
+    """``FoldedResNet50(stride_in_1x1=False)`` of the backbone weights in
+    ``state`` (the keys of both placements are the same) on ``device``."""
+    spec = BackboneSpec(input_size=2 * S, dtype=dtype)
+    model = ResNet50(spec, stride_in_1x1=False)
+    model.load_state_dict({k[len("backbone."):]: v for k, v in state.items()
+                           if k.startswith("backbone.")})
+    return FoldedResNet50(fold_batchnorm(model.to(device)), spec,
+                          stride_in_1x1=False)
+
+
+def a16b_stride(state: dict, line: str) -> tuple:
+    """The torchvision placement in bf16 at B x T frames: the launches of
+    one backbone call (stem 1, layer2 3: block 0 runs as cuDNN convs), the
+    layer2 tail against ``layer2_plain`` (record ``layer2_tail``: 3 blocks'
+    work, 3 cuDNN bottlenecks as the library call), the backbone's time
+    beside the default placement's; in fp32 the card against the CPU on one
+    clip x A16B_CLIP_T frames (the ``fp32`` phase's gates). Returns
+    (record, report, launches)."""
+    rng = np.random.default_rng(SEED + 60)
+    crops = torch.from_numpy(rng.integers(0, 256, (B * T, S, S, 3),
+                                          dtype=np.uint8)).cuda().float()
+    report = {"card": line}
+    folded = stride_backbone(state, "bfloat16", "cuda")
+    cfg = MimamoConfig()
+    default = Mimamo(dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, dtype="bfloat16")))
+    default.load_state_dict(state)
+    with torch.no_grad():
+        folded(crops)                                        # warm-up
+        torch.cuda.synchronize()
+        (emb, _), launches = counted(lambda: folded(crops), dict(
+            expected_launches(0), stem_fused=1, layer2_fused=3))
+        report["finite"] = bool(torch.isfinite(emb).all())
+        report["backbone_ms"] = time_ms(lambda: folded(crops), iters=3,
+                                        batch=2)
+        ref = default._backbone_folded()
+        report["default_placement_backbone_ms"] = time_ms(
+            lambda: ref(crops), iters=3, batch=2)
+        del default, ref
+        x = folded._stage(folded._stage(folded.run_stem(crops), 1), 2)
+        x = x.permute(0, 2, 3, 1).contiguous()          # block 0's output
+        tail = folded.layer2
+        got = layer2_kernel.layer2_fused(x, tail)
+        want = layer2_kernel.layer2_plain(x, tail)
+        errs = errors(got, want)
+        lib = [{conv: (c.weight.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last), c.bias.to(torch.bfloat16),
+            c.stride, c.weight.shape[1] // 2) for conv, c in blk.items()}
+            for blk in tail]
+
+        def library():
+            v = x.permute(0, 3, 1, 2)
+            for blk in lib:
+                v = folded._bottleneck(v, blk)
+            return v
+
+        pixels = got.shape[0] * got.shape[1] * got.shape[2]
+        flops = sum(2.0 * pixels * c.weight.numel()
+                    for blk in tail for c in blk.values())
+        nbytes = x.numel() * 2 + got.numel() * 2 + sum(
+            c.weight.numel() * 2 + c.bias.numel() * 4
+            for blk in tail for c in blk.values())
+        del got, want
+        rec = record("layer2_tail", "mimamo_tpu_torch/csrc/layer2.cu",
+                     "mimamo_tpu/pallas/layer2_kernel.py:174", errs,
+                     {"tol_max_rel": BF16_REL_TOL},
+                     time_ms(lambda: layer2_kernel.layer2_fused(x, tail)),
+                     time_ms(lambda: layer2_kernel.layer2_plain(x, tail),
+                             batch=2),
+                     nbytes, flops, time_ms(library))
+        rec["launches"] = launches["layer2_fused"]
+        rec["blocks"] = len(tail)
+        del x, folded
+        torch.cuda.empty_cache()
+        small = crops[:A16B_CLIP_T]
+        card32 = stride_backbone(state, "float32", "cuda")
+        (card_emb, card_logits), report["launches_fp32"] = counted(
+            lambda: card32(small), dict(expected_launches(0),
+                                        **{"stem_fused[f32]": 1}))
+        cpu_emb, cpu_logits = stride_backbone(state, "float32", "cpu")(
+            small.cpu())
+        report["fp32_card_vs_cpu_emb_max_rel"] = max_rel(card_emb.cpu(),
+                                                         cpu_emb)
+        report["fp32_card_vs_cpu_logits_max_rel"] = max_rel(
+            card_logits.cpu(), cpu_logits)
+        del card32
+    report["launches"] = launches
+    if not (report["finite"] and errs["max_rel_err"] < BF16_REL_TOL
+            and report["fp32_card_vs_cpu_emb_max_rel"] <= FP32_EMB_REL_TOL
+            and report["fp32_card_vs_cpu_logits_max_rel"]
+            <= FP32_OUT_REL_TOL):
+        raise AssertionError(f"a16b stride variant: {report}, {errs}")
+    return rec, report, launches
+
+
+GRAD_GROUPS = ("stem", "layer1", "layer2", "layer3", "layer4", "temporal")
+
+
+def grad_groups(model: Mimamo) -> dict:
+    """The gradient of one step as one fp32 vector per part of the model:
+    the backbone's stem (conv1, bn1), its four stages, the temporal model
+    (the backbone's fc is left out: the logits feed no loss)."""
+    parts = {g: [] for g in GRAD_GROUPS}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        top, rest = name.split(".", 1)
+        group = ("temporal" if top == "temporal"
+                 else rest.split(".", 1)[0] if rest.startswith("layer")
+                 else "stem")
+        parts[group].append(p.grad.detach().float().flatten())
+    return {g: torch.cat(v) for g, v in parts.items()}
+
+
+def grad_agreement(a: dict, b: dict) -> dict:
+    """Cosine and norm ratio of ``a`` against ``b`` (:func:`grad_groups`)
+    per part, and of the backbone's parts as one vector."""
+    def cmp(x, y):
+        x, y = x.double(), y.double()
+        return {"cos": float(x @ y / (x.norm() * y.norm())),
+                "norm_ratio": float(x.norm() / y.norm())}
+    out = {g: cmp(a[g], b[g]) for g in GRAD_GROUPS}
+    bb = [g for g in GRAD_GROUPS if g != "temporal"]
+    out["backbone"] = cmp(torch.cat([a[g] for g in bb]),
+                          torch.cat([b[g] for g in bb]))
+    return out
+
+
+def a16b_finetune(line: str) -> tuple:
+    """bf16 fine-tuning at the default geometry (4 x 48 frames of 112^2
+    crops, backbone input 224, remat): one step against the fp32 step from
+    the same weights on the same batch (loss; the gradient's cosine and
+    norm per part, beside those of an fp32 step on clips moved by
+    FINETUNE_PERTURB, the measure of how far the gradient's direction is
+    set by its input at all), 2 steps move the weights and BN stats,
+    ``predict_clips`` of the refolded weights with its launches, the step
+    times and peak memory of both dtypes. Returns (report, the launches of
+    that ``predict_clips``)."""
+    report = {"card": line}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "aff")
+        datasets.make_synthetic_affwild2(root, n_videos=2, frames=TRAIN_T,
+                                         size=S, seed=SEED)
+        cfg = MimamoConfig()
+        batch = next(datasets.AffWild2Dataset(root, clip=cfg.clip).batches(
+            cfg.train.batch_size))
+    moved = dict(batch, clips=batch["clips"].astype(np.float32)
+                 + FINETUNE_PERTURB * np.random.default_rng(SEED + 62)
+                 .uniform(-1, 1, batch["clips"].shape).astype(np.float32))
+    init = weights.init_variables(cfg, SEED)
+    runs = {}
+    for name, dtype, data in (("float32", "float32", batch),
+                              ("float32_moved", "float32", moved),
+                              ("bfloat16", "bfloat16", batch)):
+        torch.cuda.empty_cache()
+        c = dataclasses.replace(
+            cfg, backbone=dataclasses.replace(cfg.backbone, dtype=dtype),
+            train=TrainSpec(freeze_backbone=False, remat_backbone=True))
+        model = Mimamo(c)
+        model.load_state_dict(init)
+        st, step = train.create_train_state(model), train.make_train_step(
+            model)
+        bb0 = {k: v.clone() for k, v in model.backbone.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        _, m = step(st, data)
+        run = {"loss": float(m["loss"]), "grads": grad_groups(model),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        runs[name] = run
+        if name == "float32_moved":
+            del model, st, step
+            continue
+        run["losses"] = [run["loss"], float(step(st, batch)[1]["loss"])]
+        bb1 = model.backbone.state_dict()
+        run["weights_moved"] = state_diff(bb1, bb0, [
+            k for k in bb0 if "running" not in k and "num_b" not in k])
+        run["bn_stats_moved"] = state_diff(bb1, bb0, [k for k in bb0
+                                                      if "running" in k])
+        if dtype == "bfloat16":
+            run["grad_dtypes"] = sorted({str(p.grad.dtype) for p in
+                                         model.parameters()
+                                         if p.grad is not None})
+            out, launches = counted(lambda: model.predict_clips(
+                batch["clips"]))
+            run["predict_finite"] = bool(torch.isfinite(out).all())
+        run["step_ms"] = step_ms(step, st, batch, 3)
+        run["step_ms_median"] = statistics.median(run["step_ms"])
+        del model, st, step
+    ref = runs["float32"]
+    for name in ("bfloat16", "float32_moved"):
+        report[f"{name}_vs_float32_step"] = {
+            "loss_abs": abs(runs[name]["loss"] - ref["loss"]),
+            "grads": grad_agreement(runs[name]["grads"], ref["grads"])}
+    for name, run in runs.items():
+        del run["grads"]
+        report[name] = run
+    report["launches_predict"] = launches
+    cmp_, bf = report["bfloat16_vs_float32_step"], runs["bfloat16"]
+    if not (cmp_["loss_abs"] <= FINETUNE_BF16_LOSS_ATOL
+            and cmp_["grads"]["temporal"]["cos"] >= FINETUNE_BF16_COS
+            and all(abs(cmp_["grads"][part]["norm_ratio"] - 1)
+                    <= FINETUNE_BF16_NORM_TOL
+                    for part in ("backbone", "temporal"))
+            and all(np.isfinite(bf["losses"])) and bf["weights_moved"] > 0
+            and bf["bn_stats_moved"] > 0 and bf["predict_finite"]
+            and bf["grad_dtypes"] == ["torch.float32"]):
+        raise AssertionError(f"a16b bf16 fine-tune: {report}")
+    return report, launches
+
+
+def a16b_pyramid(line: str) -> dict:
+    """``pyramid.build`` -> ``reconstruct`` on B x T frames of 112^2 on the
+    card (rel-err < PYRAMID_REC_TOL), and the pyramid on the card against
+    the CPU's (max |d| / max |CPU| <= PYRAMID_CARD_CPU_TOL per part)."""
+    spec = MimamoConfig().pyramid
+    frames = torch.from_numpy(np.random.default_rng(SEED + 61).uniform(
+        0, 255, (B * T, S, S)).astype(np.float32))
+    card_frames = frames.cuda()
+    pyr = pyramid.build(card_frames, spec)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pyr = pyramid.build(card_frames, spec)
+    rec = pyramid.reconstruct(pyr, spec)
+    torch.cuda.synchronize()
+    report = {"card": line,
+              "build_reconstruct_ms": (time.perf_counter() - t) * 1e3,
+              "reconstruct_rel_err": max_rel(rec, card_frames)}
+    cpu = pyramid.build(frames, spec)
+    report["card_vs_cpu_max_rel"] = {
+        "high": max_rel(pyr["high"].cpu(), cpu["high"]),
+        "low": max_rel(pyr["low"].cpu(), cpu["low"]),
+        **{f"band{s}": max_rel(torch.view_as_real(b.cpu()),
+                               torch.view_as_real(c))
+           for s, (b, c) in enumerate(zip(pyr["bands"], cpu["bands"]))}}
+    if not (report["reconstruct_rel_err"] < PYRAMID_REC_TOL
+            and max(report["card_vs_cpu_max_rel"].values())
+            <= PYRAMID_CARD_CPU_TOL):
+        raise AssertionError(f"a16b pyramid: {report}")
+    return report
+
+
+def a16b_examples(tmp: str) -> dict:
+    """Both examples as processes on the card, started together: exit 0
+    and the files they write."""
+    want = {"demo": ["demo.boxes.npy", "demo.feat.npy", "demo.mp4",
+                     "demo.npy", "predictions.csv"],
+            "serve_client": ["preds.csv", "sample.mp4"]}
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = {}
+    for name in want:
+        out = os.path.join(tmp, name)
+        procs[name] = (out, subprocess.Popen(
+            [sys.executable, "-m", f"mimamo_tpu_torch.examples.{name}",
+             "--out-dir", out], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    report = {}
+    t = time.perf_counter()
+    for name, (out, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=A16B_EXAMPLES_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+        report[name] = {"rc": proc.returncode, "files": files,
+                        "last_line": stdout.strip().splitlines()[-1:],
+                        "ok": proc.returncode == 0 and files == want[name]}
+        if not report[name]["ok"]:
+            report[name]["stderr"] = stderr[-2000:]
+    report["wall_s"] = time.perf_counter() - t
+    return report
+
+
+def check_a16b(state: dict, line: str) -> tuple:
+    """The JAX package's last modules (docstring item 17). Returns (the
+    ``layer2_tail`` record, the launches of the stride variant's backbone
+    call, those of ``predict_clips`` after a bf16 fine-tune)."""
+    rec, stride, stride_launches = a16b_stride(state, line)
+    print(json.dumps({"a16b_stride_variant": stride}), flush=True)
+    torch.cuda.empty_cache()
+    finetune, ft_launches = a16b_finetune(line)
+    print(json.dumps({"a16b_finetune_bf16": finetune}), flush=True)
+    torch.cuda.empty_cache()
+    pyr = a16b_pyramid(line)
+    print(json.dumps({"a16b_pyramid": pyr}), flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = a16b_examples(tmp)
+    print(json.dumps({"a16b_examples": ex}), flush=True)
+    if not all(ex[name]["ok"] for name in ("demo", "serve_client")):
+        raise AssertionError(f"a16b examples: {ex}")
+    return rec, stride_launches, ft_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2888,7 +3292,15 @@ def main() -> int:
         rec["launches_parallel_predict_batch"] = {
             dtype: rank0["launches_predict_batch"][dtype].get(rec["name"], 0)
             for dtype in ("bfloat16", "float32")}
-    recs += crop_recs + variant_recs
+
+    # -- the JAX package's last modules ---------------------------------------
+    t = time.perf_counter()
+    tail_rec, stride_launches, ft_launches = check_a16b(state, line)
+    print(json.dumps({"a16b_s": time.perf_counter() - t}), flush=True)
+    for rec in recs:
+        rec["launches_stride_variant"] = stride_launches[rec["name"]]
+        rec["launches_finetune_bf16_predict"] = ft_launches[rec["name"]]
+    recs += crop_recs + variant_recs + [tail_rec]
     print(json.dumps({"smoke_s": time.perf_counter() - t_start}), flush=True)
 
     print(json.dumps({"kernels": recs}), flush=True)

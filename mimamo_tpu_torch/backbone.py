@@ -3,10 +3,13 @@
 Counterpart of ``mimamo_tpu/backbone.py``. :class:`ResNet50` holds the
 parameters in the canonical torchvision schema (``conv1.weight``,
 ``layer1.0.bn2.running_var``, ``layer2.0.downsample.0.weight``, ``fc.*``;
-docs/WEIGHTS.md), with the Caffe/MatConvNet stride placement
+docs/WEIGHTS.md), by default with the Caffe/MatConvNet stride placement
 (``stride_in_1x1``: block 0 of layers 2-4 strides its first 1x1 conv) that
-converted FER+ checkpoints expect. Inference runs the BN-folded form,
-:class:`FoldedResNet50`, built by :func:`fold_batchnorm`:
+converted FER+ checkpoints expect; ``stride_in_1x1=False`` is the
+torchvision v1.5 placement (block 0 strides its 3x3 conv2), as in the JAX
+package, reached by no config field. Both placements have the same keys.
+Inference runs the BN-folded form, :class:`FoldedResNet50`, built by
+:func:`fold_batchnorm`:
 
   * stem: for a crop of exactly half ``input_size``, ``kernels.
     stem_kernel`` (upscale + conv1 + relu + max pool from the crop;
@@ -18,14 +21,21 @@ converted FER+ checkpoints expect. Inference runs the BN-folded form,
     2x);
   * layer1, layer3, layer4: ``F.conv2d`` in channels_last, in the
     configured dtype (XLA lowered these outside any Pallas kernel);
-  * layer2: ``kernels.layer2_kernel`` in bf16; ``F.conv2d`` like the other
-    stages in fp32, as the JAX package routes it (its Pallas layer2 is
-    bf16-only, so an fp32 backbone runs layer2 as XLA convs);
+  * layer2: ``kernels.layer2_kernel`` in bf16 (under the 3x3 placement
+    block 0 as ``F.conv2d``, blocks 1-3 through the kernel: it computes
+    block 0 in the 1x1 placement only); ``F.conv2d`` like the other stages
+    in fp32, as the JAX package routes it (its Pallas layer2 is bf16-only,
+    so an fp32 backbone runs layer2 as XLA convs);
   * pool5: mean over space, the 2048-d embedding, and the FER+ ``fc``.
 
 Fine-tuning runs the unfolded :meth:`ResNet50.forward` with training-mode
 BatchNorm (``batchnorm.BatchNorm2d``) on ``preprocess.for_backbone`` input,
-as plain autograd: the kernels are inference-only.
+as plain autograd (cuDNN on the card): the kernels are inference-only. A
+bf16 spec runs it as Flax's ``dtype=bfloat16`` modules do: fp32 parameters
+(the optimizer's copy), each conv on its input and weight cast to bf16,
+BatchNorm statistics and normalization in fp32 with a bf16 output, relu,
+the residual add and the max pool in bf16, pool5 averaged to bf16 and fc
+in fp32.
 
 The reference's weights come in through :func:`load_torch_state_dict`
 (torchvision names, or the FER+ MatConvNet ``dag`` names by
@@ -61,15 +71,32 @@ FERPLUS_CLASSES = ("neutral", "happiness", "surprise", "sadness",
 Folded = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` in the dtype of ``x``: its fp32 weight cast to it, as
+    Flax's ``nn.Conv(dtype=...)`` casts its kernel."""
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                    conv.padding)
+
+
+def _strides(stride: int, stride_in_1x1: bool) -> Tuple[int, int]:
+    """(conv1's stride, conv2's) of a block that strides by ``stride``."""
+    return (stride, 1) if stride_in_1x1 else (1, stride)
+
+
 class Bottleneck(nn.Module):
     """Bottleneck block; its ``forward`` is the unfolded (training) form,
-    inference uses the folded one."""
+    inference uses the folded one. ``stride_in_1x1``: the stride in conv1
+    (Caffe) or, False, in conv2 (torchvision v1.5); the projection strides
+    either way."""
 
-    def __init__(self, inplanes: int, width: int, stride: int):
+    def __init__(self, inplanes: int, width: int, stride: int,
+                 stride_in_1x1: bool = True):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, width, 1, stride=stride, bias=False)
+        s1, s2 = _strides(stride, stride_in_1x1)
+        self.conv1 = nn.Conv2d(inplanes, width, 1, stride=s1, bias=False)
         self.bn1 = BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, padding=1, bias=False)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=s2, padding=1,
+                               bias=False)
         self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
         self.bn3 = BatchNorm2d(width * 4)
@@ -80,16 +107,19 @@ class Bottleneck(nn.Module):
                 BatchNorm2d(width * 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        res = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        return F.relu(self.bn3(self.conv3(y)) + res)
+        res = x
+        if self.downsample is not None:
+            res = self.downsample[1](_conv(self.downsample[0], x))
+        y = F.relu(self.bn1(_conv(self.conv1, x)))
+        y = F.relu(self.bn2(_conv(self.conv2, y)))
+        return F.relu(self.bn3(_conv(self.conv3, y)) + res)
 
 
 class ResNet50(nn.Module):
-    """ResNet-50 parameters in the canonical torchvision schema."""
+    """ResNet-50 parameters in the canonical torchvision schema, with the
+    stride placement ``stride_in_1x1`` (:class:`Bottleneck`)."""
 
-    def __init__(self, spec: BackboneSpec):
+    def __init__(self, spec: BackboneSpec, stride_in_1x1: bool = True):
         super().__init__()
         self.spec = spec
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -99,34 +129,34 @@ class ResNet50(nn.Module):
             layer = []
             for b in range(blocks):
                 layer.append(Bottleneck(inplanes, width,
-                                        2 if (i > 0 and b == 0) else 1))
+                                        2 if (i > 0 and b == 0) else 1,
+                                        stride_in_1x1))
                 inplanes = width * 4
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.fc = nn.Linear(spec.feature_dim, spec.num_classes)
 
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(images.permute(0, 3, 1, 2))))
+        x = images.permute(0, 3, 1, 2).to(work_dtype(self.spec))
+        x = F.relu(self.bn1(_conv(self.conv1, x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i in range(len(STAGE_SIZES)):
             x = getattr(self, f"layer{i + 1}")(x)
-        return x.mean(dim=(2, 3))
+        # pool5: summed in fp32, rounded to the work dtype (jnp.mean)
+        return x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype).to(
+            torch.float32)
 
     def forward(self, images: torch.Tensor, remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[N, H, W, 3] preprocessed fp32 images (``preprocess.for_backbone``)
-        -> (pool5 embeddings [N, 2048], FER+ logits), unfolded, with each
-        BatchNorm in the module's mode (training: batch statistics and one
-        running-stat update per call).
+        """[N, H, W, 3] preprocessed images (``preprocess.for_backbone``)
+        -> (pool5 embeddings [N, 2048] fp32, FER+ logits), unfolded, in the
+        spec's dtype (module docstring), with each BatchNorm in the
+        module's mode (training: batch statistics and one running-stat
+        update per call).
 
         ``remat``: keep no activations for the backward pass and compute
         them again in it (``torch.utils.checkpoint``), as the JAX package's
         ``jax.checkpoint`` does under ``TrainSpec.remat_backbone``; the
         recomputation leaves the running stats alone."""
-        if self.spec.dtype != "float32":
-            raise NotImplementedError(
-                f"the unfolded backbone runs in float32 only, got "
-                f"{self.spec.dtype!r} (a bf16 fine-tune is not ported; "
-                f"see ROADMAP.md)")
         if remat:
             emb = torch.utils.checkpoint.checkpoint(
                 self._forward, images, use_reentrant=False,
@@ -180,12 +210,17 @@ class FoldedResNet50:
     exactly twice a square crop and :meth:`_stem_resized` otherwise (a
     route the config picks, not a fallback: the stem kernel computes only
     the exact 2x upscale); ``run_layer2`` is :meth:`_layer2_kernel` in
-    bf16 and :meth:`_layer2_convs` in fp32.
+    bf16, :meth:`_layer2_tail_kernel` in bf16 under ``stride_in_1x1=False``
+    (block 0 strides its 3x3 conv, a function the kernel does not compute:
+    block 0 as ``F.conv2d``, blocks 1-3 through the kernel) and
+    :meth:`_layer2_convs` in fp32.
     """
 
     def __init__(self, folded: Folded, spec: BackboneSpec,
-                 crop_hw: Optional[Tuple[int, int]] = None):
+                 crop_hw: Optional[Tuple[int, int]] = None,
+                 stride_in_1x1: bool = True):
         self.spec = spec
+        self.stride_in_1x1 = stride_in_1x1
         self.crop_hw = tuple(crop_hw or (spec.input_size // 2,) * 2)
         dt = work_dtype(spec)
         h, w = self.crop_hw
@@ -199,26 +234,33 @@ class FoldedResNet50:
             self.conv1 = (w1.to(dt).contiguous(
                 memory_format=torch.channels_last), b1.to(dt))
             self.run_stem = self._stem_resized
+        # the blocks of each stage that run as F.conv2d
+        conv_blocks = dict(enumerate(STAGE_SIZES, 1))
         if dt == torch.bfloat16:
-            self.layer2 = layer2_kernel.pack_layer2_params(folded, dt)
-            self.run_layer2 = self._layer2_kernel
-            conv_stages = (1, 3, 4)
+            self.layer2 = layer2_kernel.pack_layer2_params(folded, dt,
+                                                           stride_in_1x1)
+            if stride_in_1x1:
+                del conv_blocks[2]
+                self.run_layer2 = self._layer2_kernel
+            else:
+                conv_blocks[2] = 1
+                self.run_layer2 = self._layer2_tail_kernel
         else:
             self.layer2 = None
             self.run_layer2 = self._layer2_convs
-            conv_stages = (1, 2, 3, 4)
         self.stages = {}
-        for stage in conv_stages:
+        for stage, n_blocks in conv_blocks.items():
             blocks = []
-            for b in range(STAGE_SIZES[stage - 1]):
+            for b in range(n_blocks):
                 p = f"layer{stage}.{b}."
+                s = 2 if stage > 1 and b == 0 else 1
+                s1, s2 = _strides(s, stride_in_1x1)
                 blk = {}
-                for name in ("conv1", "conv2", "conv3", "downsample"):
+                for name, stride in (("conv1", s1), ("conv2", s2),
+                                     ("conv3", 1), ("downsample", s)):
                     if p + name not in folded:
                         continue
                     w, bias = folded[p + name]
-                    stride = 2 if (stage > 1 and b == 0
-                                   and name in ("conv1", "downsample")) else 1
                     blk[name] = (
                         w.to(dt).contiguous(memory_format=torch.channels_last),
                         bias.to(dt), stride, w.shape[-1] // 2)
@@ -261,6 +303,14 @@ class FoldedResNet50:
         and out)."""
         return layer2_kernel.layer2_fused(
             x.permute(0, 2, 3, 1).contiguous(), self.layer2).permute(0, 3, 1, 2)
+
+    def _layer2_tail_kernel(self, x: torch.Tensor) -> torch.Tensor:
+        """layer2 under the 3x3 stride placement: block 0 as folded
+        ``F.conv2d`` (stride in conv2), blocks 1-3 through
+        ``kernels.layer2_kernel``'s stride-1 tail."""
+        y = self._stage(x, 2)                                # block 0 alone
+        return layer2_kernel.layer2_fused(
+            y.permute(0, 2, 3, 1).contiguous(), self.layer2).permute(0, 3, 1, 2)
 
     def _layer2_convs(self, x: torch.Tensor) -> torch.Tensor:
         """layer2 as four folded bottlenecks of ``F.conv2d``."""

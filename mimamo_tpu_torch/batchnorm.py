@@ -10,6 +10,15 @@ inference path and replaces only the update. Flax's ``momentum=0.9`` (the
 weight of the old value) is torch's ``momentum=0.1`` (the weight of the
 batch's).
 
+Half precision follows ``flax.linen.BatchNorm(dtype=bfloat16)`` (its
+``force_float32_reductions``): on bf16 activations the mean and the biased
+variance are taken in fp32, ``(x - mean) * (rsqrt(var + eps) * scale) +
+bias`` is computed in fp32 from the fp32 parameters, the output is rounded
+to bf16, and the running stats stay fp32. ``F.batch_norm`` computes
+exactly that for a bf16 input with fp32 parameters (one fused kernel that
+keeps only the bf16 input for its backward); the synced path forms the
+same from its fp32 sums.
+
 Data parallelism: under GSPMD the JAX train-mode BN reduces over the global
 batch. Inside :func:`synced` a layer takes its mean and biased variance
 from the channel sums and sums of squares all-reduced over a
@@ -46,8 +55,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.group: Optional[parallel.DataGroup] = None
 
     def _global_stats(self, x: torch.Tensor):
-        """(mean, biased var) [C] over the batches of every rank."""
+        """(mean, biased var) [C] in fp32 over the batches of every rank."""
         c = x.shape[1]
+        x = x.to(torch.float32)
         sums = parallel.all_reduce(torch.cat([
             x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
             x.new_tensor([x.numel() // c])]), self.group)
@@ -65,13 +75,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         else:
             mean, var = self._global_stats(x)
             scale = self.weight * torch.rsqrt(var + self.eps)
-            y = ((x - mean[None, :, None, None]) * scale[None, :, None, None]
-                 + self.bias[None, :, None, None])
+            y = ((x.to(torch.float32) - mean[None, :, None, None])
+                 * scale[None, :, None, None]
+                 + self.bias[None, :, None, None]).to(x.dtype)
         if self.update_stats:
             with torch.no_grad():
                 if mean is None:
-                    var, mean = torch.var_mean(x, dim=(0, 2, 3),
-                                               unbiased=False)
+                    var, mean = torch.var_mean(x.to(torch.float32),
+                                               dim=(0, 2, 3), unbiased=False)
                 self.running_mean.mul_(1 - self.momentum).add_(
                     mean, alpha=self.momentum)
                 self.running_var.mul_(1 - self.momentum).add_(

@@ -38,12 +38,18 @@ data); ``eval`` and ``predict-corpus`` give each process a disjoint slice
 of the sequences or videos, and every ``eval`` process prints the same
 global metrics. ``--data-parallel`` alone is a world of one process.
 
+``train --tensorboard DIR`` writes each epoch's numeric metrics as
+TensorBoard scalars at step = epoch (``summary.EventWriter``, no
+TensorFlow needed; the first process only). ``train --debug-nans`` stops
+at the first NaN in a module's output, a backward function, the loss or a
+gradient with ``FloatingPointError`` naming it (``train.nan_checks``), as
+``jax_debug_nans`` stops the JAX CLI.
+
 What the JAX CLI has and this one does not:
 
   * flags that chose a TPU lowering (``--fft-mode``, ``--stem-mode``,
     ``--use-pallas``): not registered, the port has one lowering each
     (cuFFT, the stem kernel, the kernels always on);
-  * ``train --tensorboard`` / ``--debug-nans``: not registered yet;
   * the ``bench`` subcommand: registered, it exits naming ROADMAP.md A15.
 """
 
@@ -240,9 +246,10 @@ def _dataset(args, config):
 
 
 def cmd_train(args) -> int:
+    import contextlib
     import copy
     import dataclasses
-    from . import checkpoints, train
+    from . import checkpoints, summary, train
 
     if args.coordinator and not args.data_parallel:
         raise SystemExit("multi-host training requires --data-parallel "
@@ -302,12 +309,26 @@ def cmd_train(args) -> int:
         eval_args.root = args.eval_root
         eval_args.manifest = args.eval_manifest or args.manifest
         eval_ds = _dataset(eval_args, config)
-    with _group(args) as group:
+    with _group(args) as group, contextlib.ExitStack() as stack:
+        writer = None
+        if args.tensorboard and group.rank == 0:
+            writer = stack.enter_context(
+                summary.EventWriter(args.tensorboard))
+
+        def on_epoch(row: dict) -> None:
+            print(json.dumps(row), flush=True)
+            if writer is not None:
+                # the JAX CLI's rule: every numeric key but the epoch
+                for k, v in row.items():
+                    if isinstance(v, (int, float)) and k != "epoch":
+                        writer.scalar(k, v, row["epoch"])
+                writer.flush()
+
         train.fit(config, ds, ckpt=args.ckpt, resume=args.resume,
                   eval_dataset=eval_ds, epochs=args.epochs,
                   eval_every=args.eval_every, log=args.log,
-                  on_epoch=lambda row: print(json.dumps(row), flush=True),
-                  group=group)
+                  on_epoch=on_epoch, group=group,
+                  debug_nans=args.debug_nans)
     return 0
 
 
@@ -645,9 +666,14 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--eval-manifest", default=None)
     p.add_argument("--eval-every", type=int, default=1,
                    help="epochs between validations")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="stop at the first NaN with FloatingPointError "
+                        "(slow; diagnosis runs)")
     p.add_argument("--loss-axis", choices=["time", "batch"], default=None,
                    help="CCC axis (default: batch for omg, time for "
                         "affwild2)")
+    p.add_argument("--tensorboard", default=None,
+                   help="TensorBoard log dir (optional)")
     _add_multihost(p, "Each process draws --batch / P clips a step from "
                       "its own slice of the data")
     _add_common(p)

@@ -14,6 +14,17 @@ call), each CTA computing conv1 -> conv2 -> conv3 (+ block 0's projection)
 for 4 output rows and a tile of at most 30 output columns of a frame with
 wgmma and TMA, y1 and y2 kept in shared memory. It takes any output size:
 a frame wider than 30 columns is cut into column tiles.
+
+Under the torchvision placement (``stride_in_1x1=False``: block 0 strides
+its 3x3 conv2, not its 1x1 conv1) the kernel computes the stride-1 tail,
+blocks 1-3, ``[N, H, W, 512] -> [N, H, W, 512]``: each of those blocks is
+the same function in both placements, and the kernel takes its stride from
+the block's input width (512: stride 1, the residual is the input). Block 0
+of that placement is a function no TPU kernel computes (the Pallas kernel
+takes only the 1x1 placement, ``mimamo_tpu/pallas/layer2_kernel.py``), so
+the caller runs it as plain convs. The JAX package's ``_pallas_layer2_ok``
+does not look at the placement and would run the 1x1 kernel on such a
+backbone; the port routes by placement and never does.
 """
 
 from __future__ import annotations
@@ -43,12 +54,14 @@ Block = Dict[str, Conv]      # conv1, conv2, conv3 (+ downsample in block 0)
 
 
 def pack_layer2_params(folded: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
-                       dtype: torch.dtype) -> Tuple[Block, ...]:
+                       dtype: torch.dtype, stride_in_1x1: bool = True
+                       ) -> Tuple[Block, ...]:
     """Folded backbone convs (``backbone.fold_batchnorm``: name ->
-    (OIHW weight, bias)) -> the four layer2 blocks in the kernel's
-    layout."""
+    (OIHW weight, bias)) -> the layer2 blocks the kernel computes, in its
+    layout: all four under the 1x1 stride placement, the stride-1 tail
+    (blocks 1-3) under the 3x3 one (module docstring)."""
     blocks = []
-    for i in range(BLOCKS):
+    for i in range(0 if stride_in_1x1 else 1, BLOCKS):
         blk = {}
         for name in ("conv1", "conv2", "conv3", "downsample"):
             key = f"layer2.{i}.{name}"
@@ -63,10 +76,16 @@ def pack_layer2_params(folded: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
 
 
 def _check(x: torch.Tensor, blocks: Tuple[Block, ...]) -> None:
-    if (x.dim() != 4 or x.shape[3] != C_IN or x.shape[1] % 2
-            or x.shape[2] % 2 or x.shape[1] < 2 or x.shape[2] < 2):
+    first = BLOCKS - len(blocks)          # 0: all four; 1: the tail
+    if first == 0 and (x.dim() != 4 or x.shape[3] != C_IN or x.shape[1] % 2
+                       or x.shape[2] % 2 or x.shape[1] < 2
+                       or x.shape[2] < 2):
         raise ValueError(f"expected [N, 2H, 2W, {C_IN}] input, got "
                          f"{tuple(x.shape)}")
+    if first == 1 and (x.dim() != 4 or x.shape[3] != OUT_W
+                       or x.shape[1] < 1 or x.shape[2] < 1):
+        raise ValueError(f"expected [N, H, W, {OUT_W}] input to the "
+                         f"stride-1 tail, got {tuple(x.shape)}")
     shapes = [
         {name: (tuple(c.weight.shape), c.stride) for name, c in blk.items()}
         for blk in blocks]
@@ -74,7 +93,7 @@ def _check(x: torch.Tensor, blocks: Tuple[Block, ...]) -> None:
              "conv2": ((WIDTH, 3, 3, WIDTH), 1),
              "conv3": ((OUT_W, 1, 1, WIDTH), 1)} for i in range(BLOCKS)]
     want[0]["downsample"] = ((OUT_W, 1, 1, C_IN), 2)
-    if shapes != want:
+    if first not in (0, 1) or shapes != want[first:]:
         raise ValueError(f"layer2 params do not have the ResNet-50 layer2 "
                          f"shapes: {shapes}")
     for blk in blocks:
@@ -111,7 +130,8 @@ def layer2_plain(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
 
 def layer2_fused(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
     """[N, 2H, 2W, 256] layer1 output -> [N, H, W, 512] layer2 output, in
-    ``x.dtype`` (NHWC).
+    ``x.dtype`` (NHWC); with the three tail blocks, [N, H, W, 512] block 0
+    output -> [N, H, W, 512].
 
     ``blocks``: :func:`pack_layer2_params` output. A CUDA tensor goes
     through the kernel (bf16 only, one launch per block); a CPU tensor
@@ -125,7 +145,8 @@ def layer2_fused(x: torch.Tensor, blocks: Tuple[Block, ...]) -> torch.Tensor:
                          f"got {x.dtype} on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (NHWC)")
-    n, h, w = x.shape[0], x.shape[1] // 2, x.shape[2] // 2
+    stride = blocks[0]["conv1"].stride
+    n, h, w = x.shape[0], x.shape[1] // stride, x.shape[2] // stride
     stream = torch.cuda.current_stream(x.device).cuda_stream
     for blk in blocks:
         ds = blk.get("downsample")

@@ -87,6 +87,11 @@ def phase_diff_resize(band: torch.Tensor, phase_size: int,
     return resize_bilinear(dphi, (phase_size, phase_size))
 
 
+def num_phase_channels(pyramid_spec: PyramidSpec) -> int:
+    """Channels of a phase-difference stack: one per (scale, orientation)."""
+    return pyramid_spec.height * pyramid_spec.orientations
+
+
 def micro_motion_features(frames: torch.Tensor, pyramid_spec: PyramidSpec,
                           phase_spec: PhaseSpec) -> torch.Tensor:
     """Grayscale frames [B, T, H, W] -> [B, T-1, S*K, P, P] float32

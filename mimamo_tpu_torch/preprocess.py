@@ -79,23 +79,28 @@ def for_backbone(crops_rgb: torch.Tensor, spec: BackboneSpec) -> torch.Tensor:
     (I = ``spec.input_size``), mean-subtracted, in the configured channel
     order.
 
-    A square crop of exactly I / 2 takes the stem kernel's arithmetic
-    order: the mean subtracted, then the exact 2x upscale, in fp32. Any
-    other size takes the JAX package's general branch, in its order: the
-    cast to the work dtype, the matmul-form bilinear resize in fp32 (IEEE,
-    :func:`ieee_fp32_matmul`; none when the crop is already I x I), the
-    cast back to the work dtype, then the channel flip and the mean
-    subtraction in the work dtype."""
+    An fp32 square crop of exactly I / 2 takes the stem kernel's
+    arithmetic order: the mean subtracted, then the exact 2x upscale, in
+    fp32. Every other input takes the JAX package's order: the cast to the
+    work dtype; at the exact 2x the interleave upscale in the work dtype
+    (bf16: the input of a bf16 fine-tune, rounded after each operation as
+    the JAX package's bf16 chain is), at any other size the matmul-form
+    bilinear resize in fp32 (IEEE, :func:`ieee_fp32_matmul`; none when the
+    crop is already I x I) cast back to the work dtype; then the channel
+    flip and the mean subtraction in the work dtype."""
     h, w = crops_rgb.shape[-3], crops_rgb.shape[-2]
-    if spec.input_size == 2 * h == 2 * w:
+    work = work_dtype(spec)
+    exact2x = spec.input_size == 2 * h == 2 * w
+    if exact2x and work == torch.float32:
         mean = torch.tensor(spec.mean_rgb, dtype=torch.float32,
                             device=crops_rgb.device)
         x = upscale2x(crops_rgb.to(torch.float32) - mean)
         return x.flip(-1) if spec.channel_order == "bgr" else x
     from .phase import resize_bilinear
-    work = work_dtype(spec)
     x = crops_rgb.to(work)
-    if w != spec.input_size:
+    if exact2x:
+        x = upscale2x(x)
+    elif w != spec.input_size:
         size = (spec.input_size, spec.input_size)
         with ieee_fp32_matmul():
             x = resize_bilinear(x.to(torch.float32).movedim(-1, -3),

@@ -10,16 +10,21 @@ Conventions: radial coordinate normalized so the spectrum edge midpoint is
 r = pi; raised-cosine transitions one octave wide in log2(r); the oriented
 band at scale s lives on the central (H/2^s, W/2^s) box of the fftshifted
 spectrum; unnormalized forward / 1/N inverse FFT (numpy default).
+
+:func:`bands` is the micro stream's path; :func:`build` returns the whole
+pyramid (highpass residual, bands, lowpass residual) and
+:func:`reconstruct` inverts it, to check the filter bank.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .config import PyramidSpec
 
@@ -135,11 +140,83 @@ def _crop(x: torch.Tensor, scale: int) -> torch.Tensor:
     return x[..., ys, xs]
 
 
-def bands(frames: torch.Tensor, spec: PyramidSpec,
-          masks: Tuple[torch.Tensor, ...]):
-    """Yield the oriented complex bands of ``frames`` [..., H, W], one
+def _bands(x: torch.Tensor, masks: Tuple[torch.Tensor, ...]
+           ) -> Iterator[torch.Tensor]:
+    """The oriented bands of the fftshifted spectrum ``x`` [..., H, W], one
     [..., K, H/2^s, W/2^s] complex64 tensor per scale s."""
+    for s, mask in enumerate(masks):
+        yield ifft2_shifted(_crop(x, s).unsqueeze(-3) * mask)
+
+
+def bands(frames: torch.Tensor, spec: PyramidSpec,
+          masks: Tuple[torch.Tensor, ...]) -> Iterator[torch.Tensor]:
+    """The oriented complex bands of ``frames`` [..., H, W], one
+    [..., K, H/2^s, W/2^s] complex64 tensor per scale s of ``spec``
+    (``masks``: :func:`band_masks`)."""
+    return _bands(fft2_shifted(frames.to(torch.float32)),
+                  masks[:spec.height])
+
+
+Pyramid = Dict[str, object]
+
+
+def build(frames: torch.Tensor, spec: PyramidSpec) -> Pyramid:
+    """Decompose grayscale frames [..., H, W] ((H, W) = ``spec.input_size``)
+    into the complex steerable pyramid: ``{"high": [..., H, W] float32,
+    "bands": tuple over scale of [..., K, H/2^s, W/2^s] complex64, "low":
+    [..., H/2^S, W/2^S] float32}``."""
+    if tuple(frames.shape[-2:]) != tuple(spec.input_size):
+        raise ValueError(
+            f"frames spatial shape {tuple(frames.shape[-2:])} != "
+            f"spec.input_size {tuple(spec.input_size)}")
+    m = make_masks(spec)
+    dev = frames.device
     x = fft2_shifted(frames.to(torch.float32))
-    for s in range(spec.height):
-        xc = _crop(x, s).unsqueeze(-3)                  # [..., 1, hs, ws]
-        yield ifft2_shifted(xc * masks[s])
+    high = ifft2_shifted(x * torch.from_numpy(m["hi0"][0]).to(dev)).real
+    low = ifft2_shifted(_crop(x, spec.height)
+                        * torch.from_numpy(m["low"][0]).to(dev)).real
+    return {"high": high, "bands": tuple(_bands(x, band_masks(spec, dev))),
+            "low": low}
+
+
+def _pad_spectrum(y: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Zero-pad a cropped fftshifted spectrum back to the full (h, w)."""
+    hs, ws = y.shape[-2], y.shape[-1]
+    y0, x0 = h // 2 - hs // 2, w // 2 - ws // 2
+    return F.pad(y, (x0, w - x0 - ws, y0, h - y0 - hs))
+
+
+def reconstruct(pyr: Pyramid, spec: PyramidSpec) -> torch.Tensor:
+    """Invert :func:`build` (perfect reconstruction up to fp32 FFT error):
+    [..., H, W] float32. It checks the filter bank; no inference path
+    calls it."""
+    m = make_masks(spec)
+    h, w = spec.input_size
+    dev = pyr["high"].device
+
+    def herm_sym(d: torch.Tensor) -> torch.Tensor:
+        # (d(f) + conj(d(-f))) / 2 on an even fftshifted grid: -f is a
+        # flip and a roll by one (the Nyquist row and column map to
+        # themselves)
+        mirror = torch.roll(d.flip(-2, -1), shifts=(1, 1), dims=(-2, -1))
+        return 0.5 * (d + torch.conj(mirror))
+
+    acc = fft2_shifted(pyr["high"]) * torch.from_numpy(m["hi0"][0]).to(dev)
+    acc = acc + _pad_spectrum(
+        fft2_shifted(pyr["low"]) * torch.from_numpy(m["low"][0]).to(dev),
+        h, w)
+    for band, mask in zip(pyr["bands"], band_masks(spec, dev)):
+        contrib = (fft2_shifted(band) * torch.conj(mask)).sum(dim=-3)
+        # each orientation covered one half-plane (doubled); the
+        # symmetrization restores the mirror lobe, and the angular windows
+        # sum to 1 over both lobes, so 0.5 closes the identity
+        # hi0^2 + sum_s B_s^2 + lo^2 = 1
+        acc = acc + 0.5 * _pad_spectrum(herm_sym(contrib), h, w)
+    return ifft2_shifted(acc).real
+
+
+def band_shapes(spec: PyramidSpec) -> Tuple[Tuple[int, int, int], ...]:
+    """(K, H/2^s, W/2^s) of each scale s."""
+    h, w = spec.input_size
+    return tuple((spec.orientations, h >> s, w >> s)
+                 for s in range(spec.height))

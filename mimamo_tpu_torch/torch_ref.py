@@ -10,10 +10,10 @@ temporal model. ``convert --verify`` forwards the converted model on the
 same inputs, so a wrong key mapping or transpose shows as a large |delta|,
 not as a silent accuracy loss later. They run on the CPU in fp32.
 
-The backbone is built for ``stride_in_1x1=True`` only (the variant the
-port's kernels compute; ``False`` raises naming ROADMAP.md A16b); the
-temporal model for every ``TemporalSpec`` variant: the stream ablations,
-stacked GRU layers and snippet pooling.
+The backbone is built for either stride placement (``stride_in_1x1``:
+block 0 of layers 2-4 strides its 1x1 conv1, or, False, its 3x3 conv2);
+the temporal model for every ``TemporalSpec`` variant: the stream
+ablations, stacked GRU layers and snippet pooling.
 """
 
 from __future__ import annotations
@@ -23,14 +23,6 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-
-
-def _variants_ported(stride_in_1x1: bool = True) -> None:
-    if not stride_in_1x1:
-        raise NotImplementedError(
-            "stride_in_1x1=False: the reference backbone is built for the "
-            "Caffe stride placement only, the one the port runs "
-            "(ROADMAP.md A16b)")
 
 
 def _tensors(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -52,12 +44,15 @@ def _load(module: nn.Module, sd: Dict[str, torch.Tensor], what: str):
 # -- ResNet-50 FER+ backbone (torchvision state_dict names) ------------------
 
 class _Bottleneck(nn.Module):
-    def __init__(self, inplanes: int, width: int, stride: int):
+    def __init__(self, inplanes: int, width: int, stride: int,
+                 stride_in_1x1: bool):
         super().__init__()
-        # stride_in_1x1: the Caffe / MatConvNet placement
-        self.conv1 = nn.Conv2d(inplanes, width, 1, stride=stride, bias=False)
+        # stride_in_1x1: the Caffe / MatConvNet placement; else torchvision's
+        s1, s2 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = nn.Conv2d(inplanes, width, 1, stride=s1, bias=False)
         self.bn1 = nn.BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, padding=1, bias=False)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=s2, padding=1,
+                               bias=False)
         self.bn2 = nn.BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(width * 4)
@@ -75,7 +70,7 @@ class _Bottleneck(nn.Module):
 
 
 class _ResNet50(nn.Module):
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, stride_in_1x1: bool):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
@@ -86,7 +81,8 @@ class _ResNet50(nn.Module):
             layer = []
             for b in range(blocks):
                 layer.append(_Bottleneck(inplanes, width,
-                                         2 if (i > 0 and b == 0) else 1))
+                                         2 if (i > 0 and b == 0) else 1,
+                                         stride_in_1x1))
                 inplanes = width * 4
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.fc = nn.Linear(2048, num_classes)
@@ -99,11 +95,6 @@ class _ResNet50(nn.Module):
         return emb, self.fc(emb)
 
 
-def _build_resnet(num_classes: int, stride_in_1x1: bool = True) -> nn.Module:
-    _variants_ported(stride_in_1x1)
-    return _ResNet50(num_classes)
-
-
 def backbone_forward(state_dict: Dict[str, np.ndarray],
                      images_nhwc: np.ndarray, stride_in_1x1: bool = True
                      ) -> Tuple[np.ndarray, np.ndarray]:
@@ -111,9 +102,9 @@ def backbone_forward(state_dict: Dict[str, np.ndarray],
     ``dag`` or user rename first, as the importer does) on [N, S, S, 3]
     preprocessed fp32 images (mean subtracted: the check isolates the
     weights' conversion). Returns (embeddings [N, 2048], logits [N, C]) as
-    numpy."""
-    model = _build_resnet(int(np.asarray(state_dict["fc.weight"]).shape[0]),
-                          stride_in_1x1)
+    numpy. ``stride_in_1x1``: the placement of block 0's stride."""
+    model = _ResNet50(int(np.asarray(state_dict["fc.weight"]).shape[0]),
+                      stride_in_1x1)
     _load(model, _tensors(state_dict), "backbone")
     with torch.no_grad():
         x = torch.from_numpy(np.ascontiguousarray(

@@ -42,6 +42,13 @@ the ranks (``parallel.average_gradients``, which also takes out the factor
 W that the collectives' backward leaves), so Adam makes the same update on
 every rank; the augmentation draws for the global batch and each rank
 takes its rows. A world of one runs the local path.
+
+``debug_nans`` is the counterpart of the JAX package's ``jax_debug_nans``
+(``cli train --debug-nans``): the step runs under autograd's anomaly mode
+with a forward hook on every module of the model (:func:`nan_checks`), and
+checks the loss and every gradient; the first module output, backward
+function, loss or gradient that holds a NaN raises ``FloatingPointError``
+naming it. Off, the step runs none of it.
 """
 
 from __future__ import annotations
@@ -246,8 +253,57 @@ def _loss_and_metrics(out: torch.Tensor, labels: torch.Tensor,
     return sums[0] / denom, sums[1:3] / denom
 
 
-def make_train_step(model: Mimamo, group: Optional[DataGroup] = None
-                    ) -> Callable:
+def _has_nan(x) -> bool:
+    """Does a module output (a tensor, or nested tuples of them, as a GRU
+    returns) hold a NaN?"""
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point() and bool(torch.isnan(x).any())
+    if isinstance(x, (tuple, list)):
+        return any(_has_nan(v) for v in x)
+    return False
+
+
+@contextlib.contextmanager
+def nan_checks(model: nn.Module) -> Iterator[None]:
+    """Inside, autograd's anomaly mode is on and every module of ``model``
+    raises ``FloatingPointError`` naming itself when its output holds a
+    NaN."""
+    def hook(name: str):
+        def check(module, inputs, output):
+            if _has_nan(output):
+                raise FloatingPointError(
+                    f"NaN in the output of module {name!r}")
+        return check
+
+    handles = [m.register_forward_hook(hook(name or type(m).__name__))
+               for name, m in model.named_modules()]
+    try:
+        with torch.autograd.set_detect_anomaly(True):
+            yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _backward_checked(loss: torch.Tensor, params) -> None:
+    """``loss.backward()`` under :func:`nan_checks`: a NaN loss, a backward
+    function that returns a NaN (anomaly mode) or a NaN gradient raises
+    ``FloatingPointError``."""
+    if torch.isnan(loss).any():
+        raise FloatingPointError("NaN in the loss")
+    try:
+        loss.backward()
+    except RuntimeError as e:
+        if "nan values" not in str(e):
+            raise
+        raise FloatingPointError(str(e)) from e
+    for name, p in params:
+        if p.grad is not None and torch.isnan(p.grad).any():
+            raise FloatingPointError(f"NaN in the gradient of {name!r}")
+
+
+def make_train_step(model: Mimamo, group: Optional[DataGroup] = None,
+                    debug_nans: bool = False) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: one update of
     ``state`` in place (returned for the JAX package's call shape).
 
@@ -260,7 +316,8 @@ def make_train_step(model: Mimamo, group: Optional[DataGroup] = None
     ``group`` (W > 1 ranks): every rank calls the step with its own B
     clips of the global batch of W x B, in rank order; rank 0's weights
     are broadcast here, and the metrics are the global batch's on every
-    rank (module docstring)."""
+    rank (module docstring). ``debug_nans``: the NaN checks of the module
+    docstring."""
     cfg = model.config
     spec = cfg.train
     freeze = spec.freeze_backbone
@@ -297,7 +354,9 @@ def make_train_step(model: Mimamo, group: Optional[DataGroup] = None
         b, t = clips.shape[:2]
         # training mode and the synced BatchNorms until after the backward
         # pass: a rematerialized backbone runs its forward again inside it
-        with _training(*trained), batchnorm.synced(model, group):
+        checks = (nan_checks(model) if debug_nans
+                  else contextlib.nullcontext())
+        with _training(*trained), batchnorm.synced(model, group), checks:
             if not cfg.temporal.use_macro:
                 emb = None
             elif "features" in batch:
@@ -315,7 +374,10 @@ def make_train_step(model: Mimamo, group: Optional[DataGroup] = None
                 out, _as_tensor(batch["labels"], dev),
                 _as_tensor(batch["mask"], dev), spec, group)
             state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            if debug_nans:
+                _backward_checked(loss, model.named_parameters())
+            else:
+                loss.backward()
         parallel.average_gradients(
             (p for g in state.optimizer.param_groups for p in g["params"]),
             group)
@@ -350,7 +412,7 @@ def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
         epochs: Optional[int] = None, eval_every: int = 1,
         log: Optional[str] = None, device=None,
         on_epoch: Optional[Callable[[dict], None]] = None,
-        group: Optional[DataGroup] = None
+        group: Optional[DataGroup] = None, debug_nans: bool = False
         ) -> Tuple[TrainState, List[dict]]:
     """Train a model from ``weights.init_variables(config,
     config.train.seed)`` on ``dataset`` (``data.datasets``), on ``device``
@@ -382,6 +444,8 @@ def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
     ``ckpt`` and evaluates its slice of ``eval_dataset`` (the metrics are
     the whole set's on every rank); rank 0 writes the checkpoints, the plan
     and the log, and the others wait for it at a barrier.
+
+    ``debug_nans``: every step runs the NaN checks (:func:`make_train_step`).
     """
     from .data import eval as eval_mod
     from .data.datasets import OMGEmotionDataset
@@ -428,7 +492,7 @@ def fit(config: MimamoConfig, dataset, ckpt: Optional[str] = None,
     if writer and plan_path and spec.lr_schedule == "cosine":
         with open(plan_path, "w") as f:
             json.dump({"total_steps": horizon}, f)
-    step_fn = make_train_step(model, group)
+    step_fn = make_train_step(model, group, debug_nans)
     evaluate = (eval_mod.evaluate_omg
                 if isinstance(eval_dataset, OMGEmotionDataset)
                 else eval_mod.evaluate_affwild2)

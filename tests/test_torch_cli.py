@@ -5,7 +5,9 @@ crops and with emotions; ``extract``; ``eval`` batched over streams;
 ``predict-corpus``) at atol 1e-5; ``train`` against ``train.fit`` (which
 tests/test_torch_train.py holds against the JAX step). Also: argument
 coherence, the model-variant flags (each builds its variant and runs
-through ``predict`` and ``serve``), the TPU flags that are not registered,
+through ``predict`` and ``serve``), the TPU flags that are not registered
+(``train --tensorboard`` / ``--debug-nans`` are in
+tests/test_torch_train_flags.py),
 the multi-process flags failing as the JAX CLI's do, and that every
 subcommand raises without a card unless ``--cpu`` is given.
 
@@ -331,12 +333,8 @@ def test_model_variant_flags_name_a16(flags, field, want, sub, tmp_path,
 @pytest.mark.parametrize("argv", [
     ["serve", "--fft-mode", "fft"], ["serve", "--stem-mode", "upscale"],
     ["serve", "--use-pallas"],
-    ["train", "--dataset", "affwild2", "--root", ".",
-     "--tensorboard", "tb"],
-    ["train", "--dataset", "affwild2", "--root", ".", "--debug-nans"],
     ["convert", "--out", "o", "--use-pallas"], ["bench"]],
-    ids=["fft-mode", "stem-mode", "use-pallas", "tensorboard", "debug-nans",
-         "convert", "bench"])
+    ids=["fft-mode", "stem-mode", "use-pallas", "convert", "bench"])
 def test_flags_not_carried_over_are_rejected(argv, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(argv + FLAGS)

@@ -438,12 +438,18 @@ def test_torch_ref_matches_the_jax_package_twins(src):
 
 
 def test_torch_ref_refuses_variants_not_ported(src):
-    """The one variant the reference forwards are not built for:
-    ``stride_in_1x1=False`` (ROADMAP.md A16b)."""
-    with pytest.raises(NotImplementedError, match="A16b"):
-        torch_ref.backbone_forward(
-            backbone.normalize_dag_state_dict(src["bb"]),
-            np.zeros((1, 16, 16, 3), np.float32), stride_in_1x1=False)
+    """The reference backbone forward refuses no stride placement:
+    ``stride_in_1x1=False`` (torchvision's) builds and equals the JAX
+    package's ``torch_ref`` bit for bit, and differs from the Caffe
+    placement's forward."""
+    tv = backbone.normalize_dag_state_dict(src["bb"])
+    imgs = np.random.default_rng(3).uniform(
+        -120, 120, (2, 2 * S, 2 * S, 3)).astype(np.float32)
+    got = torch_ref.backbone_forward(tv, imgs, stride_in_1x1=False)
+    want = jtorch_ref.backbone_forward(tv, imgs, stride_in_1x1=False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not np.array_equal(got[0], torch_ref.backbone_forward(tv, imgs)[0])
 
 
 def test_convert_without_cuda_raises(src, monkeypatch, tmp_path):

@@ -53,6 +53,10 @@ MODULES = (
     "mimamo_tpu_torch.torch_ref",
     "mimamo_tpu_torch.parallel",
     "mimamo_tpu_torch.dryrun",
+    "mimamo_tpu_torch.summary",
+    "mimamo_tpu_torch.examples",
+    "mimamo_tpu_torch.examples.demo",
+    "mimamo_tpu_torch.examples.serve_client",
     "chip_smoke",
 )
 
