@@ -60,6 +60,20 @@ namespace dots {
 
 using namespace hopper;
 
+// Cut-down variants for timing (bench/dots_variants.py): DOTS_NO_LOAD (no
+// TMA load: the producer arrives on each slot), DOTS_NO_MMA (no wgmma),
+// DOTS_NO_STORE (no output store).
+#ifdef DOTS_NO_MMA
+constexpr bool kMma = false;
+#else
+constexpr bool kMma = true;
+#endif
+#ifdef DOTS_NO_STORE
+constexpr bool kStore = false;
+#else
+constexpr bool kStore = true;
+#endif
+
 constexpr int kStages = 3;
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;
@@ -185,6 +199,11 @@ dots_block_kernel(const __grid_constant__ Params p) {
                     int wn, uint32_t wbytes) {
       mbar_wait(&empty[r.slot], r.phase ^ 1);
       unsigned char* slot = ring + r.slot * S::kSlotBytes;
+#ifdef DOTS_NO_LOAD
+      if (lane == 0) mbar_arrive(&full[r.slot]);
+      r.next();
+      return;
+#endif
       if (lane == 0) {
         mbar_expect_tx(&full[r.slot], nq * 128 + wbytes);
         tma_load_2d(slot + S::kXBytes, wmap, &full[r.slot], wk, wn);
@@ -259,7 +278,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
       for (int k = 0; k < 4; ++k)
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
-          wgmma_n64(acc[mt], desc_sw128(a + (mt0 + mt) * 8192 + 32 * k),
+          if (kMma) wgmma_n64(acc[mt], desc_sw128(a + (mt0 + mt) * 8192 + 32 * k),
                     desc_sw128(b + 32 * k), kc | k);
       end();
     }
@@ -295,7 +314,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
         const uint32_t a = y_a + 8 * h * S::kYLbo + row * 16;
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          wgmma_n<W>(acc, desc_interleave(a + 2 * k * S::kYLbo, S::kYLbo),
+          if (kMma) wgmma_n<W>(acc, desc_interleave(a + 2 * k * S::kYLbo, S::kYLbo),
                      desc_sw128(b + 32 * k), t9 | h | k);
         end();
       }
@@ -332,7 +351,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
                 ? desc_interleave(y_a + (8 * s + 2 * k) * S::kYLbo + o0 * 16,
                                   S::kYLbo)
                 : desc_sw128(x + o0 * 128 + 32 * k);
-        wgmma_n128(acc, da, desc_sw128(b + 32 * k), s | k);
+        if (kMma) wgmma_n128(acc, da, desc_sw128(b + 32 * k), s | k);
       }
       end();
     }
@@ -383,7 +402,8 @@ dots_block_kernel(const __grid_constant__ Params p) {
         if (f >= P) continue;
         dst = static_cast<long long>(n) * P + f;
       }
-      *reinterpret_cast<uint4*>(p.out + dst * OUT + 128 * nc + 8 * c) =
+      if (kStore)
+        *reinterpret_cast<uint4*>(p.out + dst * OUT + 128 * nc + 8 * c) =
           *reinterpret_cast<const uint4*>(my_stg + row * kStgPitch + 16 * c);
     }
   }
