@@ -202,6 +202,7 @@ from mimamo_tpu_torch import (StreamingSession, api, checkpoints, dryrun,
 from mimamo_tpu_torch.backbone import (FoldedResNet50, ResNet50,
                                        fold_batchnorm)
 from mimamo_tpu_torch.bench import layer1_probe, layer2_probe
+from mimamo_tpu_torch.bench.dots_variants import ptxas_report
 from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
                                             PEAK_BYTES_PER_S,
                                             PEAK_FP32_FLOP_PER_S,
@@ -211,7 +212,7 @@ from mimamo_tpu_torch.config import (BackboneSpec, ClipSpec, MimamoConfig,
                                      PyramidSpec, TemporalSpec, TrainSpec)
 from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.data.eval import evaluate_affwild2
-from mimamo_tpu_torch.kernels import (_build, layer1_dots_kernel,
+from mimamo_tpu_torch.kernels import (_build, dots_block, layer1_dots_kernel,
                                       layer2_dots_kernel, layer2_kernel,
                                       phase_kernel, stem_kernel)
 from mimamo_tpu_torch.kernels.layer2_kernel import C_IN, OUT_W, WIDTH
@@ -1891,12 +1892,18 @@ def bf16_biases(blocks) -> list:
         if getattr(blk, k) is not None}) for blk in blocks]
 
 
+DOTS_CHECK_FRAMES = (1, 3, 5)  # and B x T: odd and ragged persistent grids
+
+
 def check_dots(name, kernel, plain, inputs, blocks) -> dict:
     """``kernel`` against ``plain`` on the card at the probe's 384 frames
-    and at N = 1 and 3: max-rel < BF16_REL_TOL, finite everywhere. Returns
-    :func:`errors` at 384 frames."""
+    and at N = 1, 3 and 5 (layer1's 29 tiles a frame leave a cluster of 4
+    partly empty; at 5 frames its 145 tiles outnumber the card's SMs, so a
+    persistent CTA takes a second tile and the last wave is ragged):
+    max-rel < BF16_REL_TOL, finite everywhere. Returns :func:`errors` at
+    384 frames."""
     errs = {}
-    for n in (1, 3, B * T):
+    for n in DOTS_CHECK_FRAMES + (B * T,):
         x = inputs(n)
         got, want = kernel(x, blocks), plain(x, blocks)
         torch.cuda.synchronize()
@@ -1941,6 +1948,15 @@ def check_probes(line: str):
         lambda: (layer1_dots_kernel.layer1_dots(l1_in(1), l1_blocks),
                  layer2_dots_kernel.layer2_dots(l2_in(1), l2_blocks)),
         dict(expected_launches(0), layer1_dots=3, layer2_g4_dots=4))
+    ptxas = ptxas_report(_build.build().with_suffix(".log").read_text())
+    for name, mod in (("layer1_dots", layer1_dots_kernel),
+                      ("layer2_g4_dots", layer2_dots_kernel)):
+        regs = [r for r in ptxas if f"ILi{mod.GRID_W}ELi{mod.WIDTH}E" in r[0]]
+        print(json.dumps({f"{name}_build": {
+            "registers_spill_stores_loads": [r[1:] for r in regs],
+            "cluster_ctas": {n: dots_block.launch_plan(mod.PLAN, n)
+                             for n in DOTS_CHECK_FRAMES + (B * T,)},
+            "card": line}}), flush=True)
     recs = []
     for name, mod, kernel, plain, inputs, blocks, cin, source, replaces in (
             ("layer1_dots", layer1_dots_kernel, layer1_dots_kernel.layer1_dots,
@@ -1972,10 +1988,13 @@ def check_probes(line: str):
         rec.update(launches=launches[name], launches_per_call=per_call[name],
                    needed_gflop=flops * B * T / 1e9,
                    executed_gflop=executed / 1e9,
-                   executed_bound_ms=executed / PEAK_BF16_FLOP_PER_S * 1e3)
+                   executed_bound_ms=executed / PEAK_BF16_FLOP_PER_S * 1e3,
+                   hbm_floor_ms=mod.hbm_floor_bytes() * B * T
+                   / PEAK_BYTES_PER_S * 1e3)
         print(json.dumps({f"{name}_work": {
             k: rec[k] for k in ("needed_gflop", "executed_gflop", "bound_ms",
-                                "executed_bound_ms", "ms")}}), flush=True)
+                                "executed_bound_ms", "hbm_floor_ms", "ms")}}),
+              flush=True)
         recs.append(rec)
 
     x = l1_in(B * T)

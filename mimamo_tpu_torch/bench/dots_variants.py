@@ -2,18 +2,21 @@
 
 Each variant compiles the dots sources (``csrc/layer1_dots.cu`` and
 ``csrc/layer2_dots.cu``) with a set of ``-D`` switches of
-``csrc/dots_block.cuh`` into a library of its own under
-``_build/variants/``, and times ``layer1_dots`` and the layer2 dots through
+``csrc/dots_block.cuh``, all into one library under ``_build/variants/``,
+and times ``layer1_dots`` and the layer2 dots through
 it at 384 frames (median of 5 batches of 10 back-to-back calls, as
 ``chip_smoke.py`` times them). Every variant is timed twice, in turns
-(a, b, ..., b, a), and the full one is held against the plain versions.
+(a, b, ..., b, a), and the first one is held against the plain versions at
+1, 3, 5 and 384 frames; the first turn of each also times every launch of
+the chain alone.
 What a variant leaves out tells what holds the kernel back:
 
 - ``full``: the kernel as built for the port;
 - ``no_load``: no TMA load (the producer arrives on each slot): products
   and epilogues alone, on whatever shared memory holds;
 - ``no_mma``: no ``wgmma``: loads and epilogues alone;
-- ``no_store``: no output store;
+- ``no_store``: no output store; ``no_epi``: no epilogue work at all;
+- ``cluster1``, ``cluster2``: clusters of 1 (no multicast) or 2 CTAs;
 - ``name:-DX,-DY``: any other set of switches.
 
     python -m mimamo_tpu_torch.bench.dots_variants [--variants "full;no_mma"]
@@ -44,7 +47,11 @@ from mimamo_tpu_torch.kernels import layer1_dots_kernel as l1
 from mimamo_tpu_torch.kernels import layer2_dots_kernel as l2d
 
 VARIANTS = {"full": (), "no_load": ("-DDOTS_NO_LOAD",),
-            "no_mma": ("-DDOTS_NO_MMA",), "no_store": ("-DDOTS_NO_STORE",)}
+            "no_mma": ("-DDOTS_NO_MMA",), "no_store": ("-DDOTS_NO_STORE",),
+            "no_epi": ("-DDOTS_NO_EPI",),
+            "cluster1": ("-DDOTS_CLUSTER=1",),
+            "cluster2": ("-DDOTS_CLUSTER=2",)}
+CHECK_FRAMES = (1, 3, 5)       # and --frames: the full variant's checks
 SOURCES = ("layer1_dots.cu", "layer2_dots.cu", "errors.cu")
 SEED = 0
 
@@ -57,6 +64,8 @@ class VariantKernel:
         self.fn = getattr(lib, symbol)
         self.fn.argtypes = dots_block.ARGTYPES
         self.fn.restype = ctypes.c_int
+        lib.mimamo_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mimamo_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib
 
     def __call__(self, *args) -> None:
@@ -66,35 +75,45 @@ class VariantKernel:
             raise RuntimeError(f"CUDA error {err} ({text})")
 
 
-def build(variants: dict, src: Path, out: Path) -> dict:
-    """Compile every variant (all ``nvcc`` processes at once) and return
-    {name: (library path, ptxas report)}."""
+ENTRIES = ("mimamo_layer1_dots_block", "mimamo_layer2_dots_block",
+           "mimamo_layer1_dots_plan", "mimamo_layer2_dots_plan")
+
+
+def build(variants: dict, src: Path, out: Path) -> tuple:
+    """Compile every variant (all ``nvcc`` processes at once) into one
+    library, variant i's namespace and C entries renamed with ``_v<i>``
+    (a cluster launch from a second library loaded into the process was
+    refused). Returns (library path, {name: ptxas report})."""
     nvcc = _build._nvcc()
-    jobs = []
-    for name, flags in variants.items():
-        d = out / name
-        d.mkdir(parents=True, exist_ok=True)
-        for s in SOURCES:
-            jobs.append((name, d / (Path(s).stem + ".o"), subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, *flags, "-c", str(src / s), "-o",
-                 str(d / (Path(s).stem + ".o"))],
+    out.mkdir(parents=True, exist_ok=True)
+    jobs, objs = [], []
+    for i, (name, flags) in enumerate(variants.items()):
+        rename = [f"-Ddots=dots_v{i}"] + [f"-D{e}={e}_v{i}" for e in ENTRIES]
+        for s in SOURCES[:2]:
+            obj = out / f"{Path(s).stem}_v{i}.o"
+            objs.append(obj)
+            jobs.append((name, subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, *flags, *rename, "-c",
+                 str(src / s), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs.append(out / "errors.o")
+    jobs.append((None, subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-c", str(src / SOURCES[2]), "-o",
+         str(objs[-1])], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)))
     logs = {name: "" for name in variants}
-    for name, _, proc in jobs:
+    for name, proc in jobs:
         text, _ = proc.communicate()
-        logs[name] += text
+        if name is not None:
+            logs[name] += text
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{text}")
-    libs = {}
-    for name in variants:
-        lib = out / name / "libdots.so"
-        subprocess.run(
-            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
-             "-o", str(lib), *(str(out / name / (Path(s).stem + ".o"))
-                               for s in SOURCES), *_build.LINK_FLAGS],
-            check=True, capture_output=True, text=True)
-        libs[name] = (lib, logs[name])
-    return libs
+    lib = out / "libdots_variants.so"
+    subprocess.run(
+        [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o",
+         str(lib), *map(str, objs), *_build.LINK_FLAGS],
+        check=True, capture_output=True, text=True)
+    return lib, logs
 
 
 def ptxas_report(log: str) -> list:
@@ -115,6 +134,25 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
+def block_ms(kernel, mod, x, blocks) -> list:
+    """Each launch of the chain timed alone (ms), on the inputs the chain
+    gives it."""
+    rows, n, out_w = mod.source_rows(), x.shape[0], blocks[-1].w3.shape[0]
+    src, times = x, []
+    for b, blk in enumerate(blocks):
+        last = b == len(blocks) - 1
+        crop = mod.CROP if last else (0, 0, 0, 0)
+        out = torch.empty((n, *mod.CROP[:2], out_w) if last
+                          else (n, mod.P, out_w), dtype=x.dtype,
+                          device=x.device)
+        call = lambda s=src, r=rows[b], o=out, c=crop, k=blk: \
+            dots_block.launch(kernel, s, r, k, o, c)
+        call()
+        times.append(time_ms(call))
+        src = out
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=";".join(VARIANTS),
@@ -122,6 +160,10 @@ def main(argv=None) -> int:
                          "name:-DX,-DY")
     ap.add_argument("--frames", type=int, default=384)
     ap.add_argument("--src", type=Path, default=_build.SRC_DIR)
+    ap.add_argument("--build-only", action="store_true",
+                    help="build the variants and print their ptxas reports")
+    ap.add_argument("--log-dir", type=Path,
+                    help="write each variant's whole nvcc report here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the variants are timed on the "
@@ -134,10 +176,26 @@ def main(argv=None) -> int:
         else:
             variants[item] = VARIANTS[item]
     line = card()
-    libs = build(variants, args.src.resolve(), _build.BUILD_DIR / "variants")
-    for name, (_, log) in libs.items():
+    path, logs = build(variants, args.src.resolve(),
+                       _build.BUILD_DIR / "variants")
+    cdll = ctypes.CDLL(str(path))
+    for i, name in enumerate(variants):
+        grids = {}
+        for probe in ("layer1", "layer2"):
+            fn = getattr(cdll, f"mimamo_{probe}_dots_plan_v{i}")
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                           ctypes.POINTER(ctypes.c_int)]
+            cl, ctas = ctypes.c_int(), ctypes.c_int()
+            err = fn(args.frames, ctypes.byref(cl), ctypes.byref(ctas))
+            grids[probe] = (cl.value, ctas.value, err)
         print(json.dumps({"variant": name, "flags": variants[name],
-                          "ptxas": ptxas_report(log)}), flush=True)
+                          "ptxas": ptxas_report(logs[name]),
+                          "cluster_ctas_err": grids}), flush=True)
+        if args.log_dir:
+            args.log_dir.mkdir(parents=True, exist_ok=True)
+            (args.log_dir / f"{name}.log").write_text(logs[name])
+    if args.build_only:
+        return 0
 
     n = args.frames
     probes = {
@@ -151,9 +209,9 @@ def main(argv=None) -> int:
                                  "cuda").dots,
             layer2_probe.inputs(n, SEED, "cuda").reshape(n, 28, 2, 28, 512),
             l2d.layer2_dots_plain)}
-    kernels = {name: {probe: VariantKernel(ctypes.CDLL(str(lib)), sym)
+    kernels = {name: {probe: VariantKernel(cdll, f"{sym}_v{i}")
                       for probe, (sym, *_) in probes.items()}
-               for name, (lib, _) in libs.items()}
+               for i, name in enumerate(variants)}
     order = list(variants) + list(variants)[::-1]
     with torch.no_grad():
         for turn, name in enumerate(order):
@@ -162,12 +220,21 @@ def main(argv=None) -> int:
                 k = kernels[name][probe]
                 run = lambda: dots_block.run(k, x, blocks, mod.source_rows(),
                                              mod.P, mod.CROP)
-                rec[f"{probe}_ms"] = time_ms(run)
-                if name == "full" and turn == 0:
-                    got = run()
-                    rec[f"{probe}_max_rel"] = max_rel(got, plain(x, blocks))
-                    rec[f"{probe}_finite"] = bool(
-                        torch.isfinite(got.float()).all())
+                if turn == 0:
+                    for m in CHECK_FRAMES + (n,):
+                        xm = x[:m]
+                        got = dots_block.run(k, xm, blocks, mod.source_rows(),
+                                             mod.P, mod.CROP)
+                        rec[f"{probe}_max_rel_{m}"] = max_rel(
+                            got, plain(xm, blocks))
+                        rec[f"{probe}_finite_{m}"] = bool(
+                            torch.isfinite(got.float()).all())
+                try:
+                    rec[f"{probe}_ms"] = time_ms(run)
+                    if turn < len(variants):
+                        rec[f"{probe}_block_ms"] = block_ms(k, mod, x, blocks)
+                except RuntimeError as e:      # a refused launch: go on
+                    rec[f"{probe}_error"] = str(e)
             print(json.dumps(rec), flush=True)
     return 0
 

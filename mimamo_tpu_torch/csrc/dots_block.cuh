@@ -1,12 +1,12 @@
 // The dot sequence of one bottleneck block of the two floor probes, on
-// Hopper: one launch per block, conv1 -> conv2 -> conv3 (+ projection) in
-// one CTA, as in layer2.cu, with no tap shifts and no pad masks.
+// Hopper: one launch per block, conv1 -> conv2 -> conv3 (+ projection),
+// with no tap shifts and no pad masks.
 //
 // Replaces the dots-only Pallas kernels of the probes: `make_kernel_dots`
 // of bench/layer1_probe.py (called by layer1_dots) and of
 // bench/layer2_probe.py (layer2_fused_g4(dots_only=True)). layer1_dots.cu
 // and layer2_dots.cu instantiate it; the wrappers are
-// kernels/layer1_dots_kernel.py and layer2_dots in kernels/layer2_kernel.py.
+// kernels/layer1_dots_kernel.py and kernels/layer2_dots_kernel.py.
 //
 // The function. A frame's state is P positions ("grid rows" of a padded
 // grid of row stride G, flattened) x cin channels, bf16. For output
@@ -26,27 +26,59 @@
 // blocks (wrap = seg = P). The last block writes a crop of the grid, the
 // others the whole P x OUT state.
 //
-// Bound on the H100: operations (see the wrappers for the counts).
+// What bounds it on the H100. Operations: the products the output needs
+// (see the wrappers: 0.471 ms for layer1_dots, 1.286 ms for the layer2
+// dots at 384 frames). layer1_dots also has a byte floor a one-launch-a-
+// block chain cannot pass: its three launches write and re-read the
+// [N, 3712, 256] state, about 3.7 GB at 384 frames, 1.10 ms at 3.35 TB/s.
 //
-// Design (layer2.cu's tile structure). A CTA owns 128 output positions
-// (two wgmma m64 tiles, one per consumer warpgroup) of one frame and
-// computes y1 on them and on one grid row (G positions) above and below.
-// Sources and weights come by TMA into a 3-slot mbarrier ring. The
-// source is a 4-D tensor map [N, segments, seg, cin] read in boxes of R
-// rows, R the largest of 64, 32, ... that divides G (where the
-// projection's rows start) and, for a wrapped source, seg, wrap and P, so
-// that no box crosses a segment, the wrap or the grid's end: R = 64 for
-// layer1, 32 for the layer2 states, 4 for the layer2 plane (28-pixel
-// rows). A box's rows land where a single box would put them, in the
-// 128-byte swizzle, which TMA applies by shared-memory address; the 32
-// lanes of the producer warp issue a chunk's boxes together, from a table
-// of box coordinates made once per CTA. y1 is kept without swizzle
-// (8-row x 16-byte core matrices)
-// so a dy tap is a step of the descriptor; conv2's three K blocks of each
-// tap point at the same y1 rows. y2 overwrites y1; conv3 and the
-// projection accumulate into the same registers, 128 output channels at
-// a time; the epilogue stages the tile in shared memory and writes it with
-// 16-byte stores.
+// What held the first version (PR 9) back, from cut-down variants timed
+// by bench/dots_variants.py (384 frames, H100 SXM at 700 W): every
+// 128-position CTA streamed the block's whole weights and, for the
+// projection, its source once per 128 output channels from L2 (about 1.8
+// MB a tile of the layer2 dots, 104 FLOP a byte): the layer2 dots ran 5.54
+// ms, 3.10 without loads and 4.39 without products, so the loads were not
+// hidden. layer1_dots ran 3.44 ms, 3.28 without loads and 2.17 with
+// neither loads nor products: a non-persistent CTA a tile, whose phases
+// (prologue, drains, the residual's global loads, the stores) ran one after
+// the other, with the tensor cores idle between them.
+//
+// Design.
+// - Clusters of C CTAs (template parameter; 4 here) on C neighbouring
+//   tiles. Every weight chunk is cut into C slices of rows; CTA r loads
+//   slice r by a TMA multicast into the same ring slot of all C CTAs, so
+//   L2 serves each weight byte once a cluster. A slot is free again once
+//   the 8 consumer warps of every CTA of the cluster have arrived on its
+//   `empty` barrier in each CTA (remote mbarrier arrives); each CTA's
+//   producer expects the whole slot's bytes on its own `full` barrier.
+// - A persistent grid: as many clusters as fit on the card at once (one
+//   CTA an SM), each walking groups of C tiles, g = cluster, cluster +
+//   clusters, ... A group past the last tile is a ghost: its CTA computes
+//   the last tile again and stores nothing, so the cluster's CTAs walk
+//   the same load sequence. The producer warp runs ahead into the next
+//   tile's conv1 chunks while the consumers finish a tile's epilogue, and
+//   the prologue (barriers, cluster sync) is paid once a CTA.
+// - conv3 and the projection take N3 output channels a pass (256 in the
+//   layer2 dots, m64n256 wgmma: the projection's source is read twice a
+//   tile, not four times); the identity residual (layer1_dots' blocks 1-2)
+//   comes by TMA with conv3's weights, ahead of the epilogue, not by
+//   global loads after the products.
+// - Slots of 48 KB whose layout follows the stage: conv1 (source rows
+//   [0, kM + 2G) x 64 channels, then W1's chunk), conv2 (W2's chunk),
+//   conv3 (W3's chunk, then the residual), projection (source rows
+//   [G, G + kM), then Wd's chunk).
+// Kept from PR 9: a CTA owns 128 output positions (two wgmma m64 tiles,
+// one per consumer warpgroup) of one frame and computes y1 on them and on
+// one grid row above and below. The source is a 4-D tensor map [N,
+// segments, seg, cin] read in boxes of R rows, R the largest of 64, 32,
+// ... that divides G and, for a wrapped source, seg, wrap and P, so that no
+// box crosses a segment, the wrap or the grid's end; a box's rows land
+// where a single box would put them, in the 128-byte swizzle, which TMA
+// applies by shared-memory address. y1 is kept without swizzle (8-row x
+// 16-byte core matrices), so a dy tap is a step of the descriptor; y2
+// overwrites y1; the epilogue stages 128 channels at a time in shared
+// memory (16-byte chunks XOR-swizzled by row) and writes them with 16-byte
+// stores.
 #pragma once
 
 #include <cuda.h>
@@ -62,7 +94,9 @@ using namespace hopper;
 
 // Cut-down variants for timing (bench/dots_variants.py): DOTS_NO_LOAD (no
 // TMA load: the producer arrives on each slot), DOTS_NO_MMA (no wgmma),
-// DOTS_NO_STORE (no output store).
+// DOTS_NO_STORE (no output store), DOTS_NO_EPI12 / DOTS_NO_EPI3 /
+// DOTS_NO_EPI (no y1 and y2 epilogues / no conv3 epilogue / neither);
+// DOTS_CLUSTER=c sets the cluster size of both kernels (1: no multicast).
 #ifdef DOTS_NO_MMA
 constexpr bool kMma = false;
 #else
@@ -73,50 +107,103 @@ constexpr bool kStore = false;
 #else
 constexpr bool kStore = true;
 #endif
+#if defined(DOTS_NO_EPI) || defined(DOTS_NO_EPI12)
+constexpr bool kEpi12 = false;     // no y1 / y2 epilogue
+#else
+constexpr bool kEpi12 = true;
+#endif
+#if defined(DOTS_NO_EPI) || defined(DOTS_NO_EPI3)
+constexpr bool kEpi3 = false;      // no conv3 epilogue
+#else
+constexpr bool kEpi3 = true;
+#endif
 
-constexpr int kStages = 3;
+#ifndef DOTS_REG_CONSUMER
+#define DOTS_REG_CONSUMER 232
+#define DOTS_REG_PRODUCER 40
+#endif
+
+// Tuning switch (bench/dots_variants.py sweeps it): DOTS_K2, W2's 64-deep
+// K chunks a conv2 stage.
+#ifndef DOTS_K2
+#define DOTS_K2 3
+#endif
+
 constexpr int kConsumers = 256;
-constexpr int kThreads = kConsumers + 32;
-constexpr int kM = 128;                      // output positions per CTA
-constexpr int kWBytes = 128 * 128;           // weight chunk: <= 128 rows x 64 k
-constexpr int kStgPitch = (128 + 8) * 2;     // output staging row, bytes
-constexpr int kStgBytes = 64 * kStgPitch;
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 128;   // + a producer warpgroup
+constexpr int kM = 128;                      // output positions a tile
+constexpr int kSmemMax = 232448;             // a block's shared memory
+constexpr int kK2 = DOTS_K2;
 
 struct Params {
-  CUtensorMap x, w1, w2, w3, wd;
-  const __nv_bfloat16* src;
+  // the source in boxes of box rows (x) and of a whole segment (xs); the
+  // weights
+  CUtensorMap x, xs, w1, w2, w3, wd;
   __nv_bfloat16* out;
   const float* b1;
   const float* b2;
   const float* b3;
   const float* bd;          // projection bias, or null
-  long long frame_stride;   // source elements between frames
-  long long seg_stride;     // source elements between segments of seg rows
-  int wrap, seg, cin;
+  int wrap, seg;
   int box;                  // source rows a TMA box
+  int seg_box;              // xs holds whole segments (a wrapped source)
   int kc1;                  // 64-channel K chunks of conv1 and the projection
   int proj;                 // projection (else identity residual)
+  int tiles;                // N x tiles a frame
   int crop_h, crop_w, crop_r0, crop_c0;  // crop_h == 0: whole state out
 };
 
 // G: grid row stride; W: bottleneck width; OUT: output channels; P: grid
-// positions a frame.
-template <int G, int W, int OUT, int P>
+// positions a frame; N3: output channels a conv3 pass; C: CTAs a cluster.
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <int G, int W, int OUT, int P, int N3, int C>
 struct Shape {
   static constexpr int kM1 = kM + 2 * G;            // y1 rows
-  static constexpr int kXBytes = kM1 * 128;         // source chunk: 64 ch
-  static constexpr int kSlotBytes = kXBytes + kWBytes;
+  static constexpr int kX1 = kM1 * 128;             // conv1 source chunk
+  static constexpr int kXP = kM * 128;              // projection source chunk
+  static constexpr int kW12 = W * 128;              // W1 / W2 chunk
+  static constexpr int kW3 = N3 * 128;              // W3 / Wd chunk
+  // an identity residual (layer1_dots: cin == OUT == 256) is taken from
+  // conv1's source chunks into registers; a block with a projection has
+  // none
+  static constexpr bool kIdentity = OUT <= 256;
+  static constexpr int kC2 = 9 * W / 64;            // W2's K chunks
+  // a ring slot holds the largest stage: conv1, conv2, conv3, projection
+  static constexpr int kSlot = cmax(
+      cmax(kX1 + kW12, kK2 * kW12),
+      cmax(kW3, kXP + kW3));
   static constexpr int kYLbo = kM1 * 16;            // bytes between 8-ch groups
   static constexpr int kYBytes = (W / 8) * kYLbo;
-  static constexpr int kBiasFloats = 2 * W + OUT;   // b1 | b2 | b3 (+ bd)
-  static constexpr int kBoxes = kM1 / 4;           // most boxes a chunk
-  static constexpr int kSmemBytes = 1024 + kStages * kSlotBytes + kYBytes +
-                                    2 * kStgBytes + 4 * kBiasFloats +
-                                    8 * kBoxes + 2 * kStages * 8;
+  static constexpr int kBias = 2 * W + OUT;         // b1 | b2 | b3 (+ bd)
+  // conv3's epilogue: kSC channels a round, staged in a warpgroup's tile
+  // (64 rows x kSC, 16-byte chunks XOR-swizzled by row)
+  static constexpr int kSC = 64;
+  static constexpr int kStg = 64 * kSC * 2;
+  static constexpr int kFixed = 1024 + kYBytes + 2 * kStg + 4 * kBias;
+  // as many slots as shared memory holds, at most 6
+  static constexpr int kStages =
+      (kSmemMax - kFixed - 6 * 16) / kSlot < 6
+          ? (kSmemMax - kFixed - 6 * 16) / kSlot : 6;
+  static constexpr int kSmemBytes = kFixed + kStages * kSlot + 2 * kStages * 8;
   static constexpr int kTiles = (P + kM - 1) / kM;
-  static_assert(kM % G == 0 && (W == 64 || W == 128) && OUT % 128 == 0, "");
+  static_assert(kM % G == 0 && (W == 64 || W == 128) && OUT % N3 == 0 &&
+                    (N3 == 128 || N3 == 256) && kC2 % kK2 == 0 &&
+                    kSlot % 1024 == 0 && W / C >= 8 &&
+                    N3 / C >= 8 && kStages >= 2 && kSmemBytes <= kSmemMax,
+                "");
 };
 
+// chunk `c` of staging row `row`, XOR-swizzled so that the rows a warp
+// writes or reads together fall on distinct banks
+template <int kSC>
+__device__ __forceinline__ int stg_at(int row, int c) {
+  static_assert(kSC == 64, "8 chunks a row");
+  return row * kSC * 2 + ((c ^ (row & 7)) * 16);
+}
+
+template <int kStages>
 struct Ring {
   int slot = 0;
   uint32_t phase = 0;
@@ -128,6 +215,60 @@ struct Ring {
   }
 };
 
+// A CTA's tile (tile index `tile` of N x tiles_per_frame): past the last
+// tile, a ghost that computes the last tile again and stores nothing.
+struct Tile {
+  int n, tile0;
+  bool ghost;
+  __device__ Tile(int tile, int tiles, int per_frame) {
+    ghost = tile >= tiles;
+    const int u = ghost ? tiles - 1 : tile;
+    n = u / per_frame;
+    tile0 = (u % per_frame) * kM;
+  }
+};
+
+// mbar_wait with a watchdog: a wait of more than 2^35 cycles (over 15 s)
+// traps, so a broken barrier protocol ends the launch with an error
+// instead of holding the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long t0 = 0;
+  uint32_t spins = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+#ifndef DOTS_NO_WATCHDOG
+    if ((++spins & 1023) == 1) {
+      if (!t0)
+        t0 = clock64();
+      else if (clock64() - t0 > (1LL << 35))
+        __trap();
+    }
+#endif
+  }
+}
+
+// `v`, hidden from the optimizer: values derived from it inside the
+// persistent loop are not hoisted out of it (kept live across tiles, they
+// spilled).
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  uint32_t r;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
+  return r;
+}
+__device__ __forceinline__ void zero(float* a, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) a[i] = 0.f;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -138,274 +279,421 @@ __device__ __forceinline__ void wgmma_n(float* d, uint64_t da, uint64_t db,
                                         int scale_d) {
   if constexpr (N == 64)
     wgmma_n64(d, da, db, scale_d);
-  else
+  else if constexpr (N == 128)
     wgmma_n128(d, da, db, scale_d);
+  else
+    wgmma_n256(d, da, db, scale_d);
 }
 
-template <int G, int W, int OUT, int P>
+template <int G, int W, int OUT, int P, int N3, int C>
 __global__ void __launch_bounds__(kThreads, 1)
 dots_block_kernel(const __grid_constant__ Params p) {
-  using S = Shape<G, W, OUT, P>;
+  using S = Shape<G, W, OUT, P, N3, C>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* ybuf = ring + kStages * S::kSlotBytes;
+  // aligned by pointer arithmetic, not through an integer: the compiler
+  // then knows every pointer below is shared memory (LDS / STS; through an
+  // integer they became generic loads and stores)
+  unsigned char* ring =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* ybuf = ring + S::kStages * S::kSlot;
   unsigned char* stg = ybuf + S::kYBytes;
-  float* bias = reinterpret_cast<float*>(stg + 2 * kStgBytes);
-  int2* boxes = reinterpret_cast<int2*>(bias + S::kBiasFloats);
-  uint64_t* full = reinterpret_cast<uint64_t*>(boxes + S::kBoxes);
-  uint64_t* empty = full + kStages;
+  float* bias = reinterpret_cast<float*>(stg + 2 * S::kStg);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias + S::kBias);
+  uint64_t* empty = full + S::kStages;
 
-  const int n = blockIdx.x / S::kTiles;
-  const int tile0 = (blockIdx.x % S::kTiles) * kM;   // first output position
-  const int f0 = tile0 - G;                          // first y1 position
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const uint32_t rank = C > 1 ? cluster_ctarank() : 0;
+  const int cluster = blockIdx.x / C, clusters = gridDim.x / C;
+  const int groups = (p.tiles + C - 1) / C;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S::kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers);
+      mbar_init(&empty[s], kConsumerWarps * C);
     }
     fence_mbar_init();
   }
-  // (row in segment, segment) of the box at y1 positions f0 + box * b.
-  // Unwrapped sources take the box as it falls (TMA zero-fills rows
-  // outside [0, P)); a wrapped one is all zeros outside [0, P).
-  for (int b = tid; b < S::kM1 / p.box; b += kThreads) {
-    const int f = f0 + b * p.box;
-    int2 c = make_int2(f, 0);
-    if (p.wrap < P) {
-      const int fw = f % p.wrap;
-      c = f >= 0 && f < P ? make_int2(fw % p.seg, fw / p.seg)
-                          : make_int2(-p.box, 0);
-    }
-    boxes[b] = c;
-  }
-  for (int i = tid; i < S::kBiasFloats; i += kThreads) {
+  // the biases, once a CTA (read from global memory in the epilogues, their
+  // latency stalled every tile)
+  for (int i = tid; i < S::kBias; i += kThreads) {
     const int c = i - 2 * W;
     bias[i] = i < W       ? p.b1[i]
               : i < 2 * W ? p.b2[i - W]
                           : p.b3[c] + (p.bd ? p.bd[c] : 0.f);
   }
-  __syncthreads();
+  if constexpr (C > 1)
+    cluster_sync();     // the peers' barriers exist before any multicast
+  else
+    __syncthreads();
 
   if (tid >= kConsumers) {
-    // ---- producer warp: every load by TMA ----
-    const int lane = tid - kConsumers;
-    Ring r;
-    // y1 rows [q0, q0 + nq), channels [c0, c0 + 64) of the source, and a
-    // weight chunk
-    auto load = [&](int q0, int nq, int c0, const CUtensorMap* wmap, int wk,
-                    int wn, uint32_t wbytes) {
-      mbar_wait(&empty[r.slot], r.phase ^ 1);
-      unsigned char* slot = ring + r.slot * S::kSlotBytes;
+    // ---- producer warpgroup: its first warp issues every load by TMA;
+    // its registers go to the consumers ----
+#ifndef DOTS_NO_SETMAXNREG
+    setmaxnreg_dec<DOTS_REG_PRODUCER>();
+#endif
+    if (tid >= kConsumers + 32) {
+      if constexpr (C > 1) cluster_sync();
+      return;
+    }
+    Ring<S::kStages> r;
+    // a slot of `bytes` (the producer's expect-tx), once it is free
+    auto stage = [&](uint32_t bytes) -> unsigned char* {
+      bar_wait(&empty[r.slot], r.phase ^ 1);
 #ifdef DOTS_NO_LOAD
       if (lane == 0) mbar_arrive(&full[r.slot]);
-      r.next();
-      return;
+#else
+      if (lane == 0) mbar_expect_tx(&full[r.slot], bytes);
 #endif
-      if (lane == 0) {
-        mbar_expect_tx(&full[r.slot], nq * 128 + wbytes);
-        tma_load_2d(slot + S::kXBytes, wmap, &full[r.slot], wk, wn);
-      }
       __syncwarp();
+      return ring + r.slot * S::kSlot;
+    };
+    // rows [row0, row0 + rows) x k [k, k + 64) of a weight: this CTA's
+    // slice of rows, multicast to the cluster
+    auto weights = [&](unsigned char* dst, const CUtensorMap* map, int k,
+                       int row0, int rows) {
+#ifndef DOTS_NO_LOAD
+      if (lane == 0) {
+        const int slice = rows / C;
+        if constexpr (C > 1)
+          tma_load_2d_multicast(dst + rank * slice * 128, map, &full[r.slot],
+                                k, row0 + rank * slice, (1u << C) - 1);
+        else
+          tma_load_2d(dst, map, &full[r.slot], k, row0);
+      }
+#endif
+    };
+    // source positions [f, f + nq) of frame n, channels [c0, c0 + 64), in
+    // boxes issued by the 32 lanes; an unwrapped source takes the box as
+    // it falls (TMA zero-fills rows outside [0, P)); a wrapped one is all
+    // zeros outside [0, P)
+    auto source = [&](unsigned char* dst, int n, int f, int nq, int c0) {
+#ifndef DOTS_NO_LOAD
+      // the 32 lanes issue the boxes of box rows together; under a
+      // wrapped source with short segments (the layer2 plane's 28-pixel
+      // rows), a segment that lies whole in the window and the frame comes
+      // as one box of xs from its first row's lane, its other rows' lanes
+      // issue nothing
       for (int b = lane; b < nq / p.box; b += 32) {
-        const int2 c = boxes[q0 / p.box + b];
-        tma_load_4d(slot + b * p.box * 128, &p.x, &full[r.slot], c0, c.x, c.y,
+        const int fb = f + b * p.box;
+        int c1 = fb, c2 = 0;
+        const CUtensorMap* map = &p.x;
+        if (p.wrap < P) {
+          const int fw = fb % p.wrap;
+          const bool in = fb >= 0 && fb < P;
+          c1 = in ? fw % p.seg : -p.box;
+          c2 = in ? fw / p.seg : 0;
+          const int s0 = fb - c1;                 // the segment's first row
+          if (p.seg_box && in && s0 >= f && s0 + p.seg <= f + nq &&
+              s0 + p.seg <= P) {
+            if (c1) continue;
+            map = &p.xs;
+          }
+        }
+        tma_load_4d(dst + b * p.box * 128, map, &full[r.slot], c0, c1, c2,
                     n);
       }
+#endif
+    };
+    for (int g = cluster; g < groups; g += clusters) {
+      const Tile tl(g * C + rank, p.tiles, S::kTiles);
+      for (int kc = 0; kc < p.kc1; ++kc) {
+        unsigned char* s = stage(S::kX1 + S::kW12);
+        source(s, tl.n, tl.tile0 - G, S::kM1, 64 * kc);
+        weights(s + S::kX1, &p.w1, 64 * kc, 0, W);
+        r.next();
+      }
+      for (int c = 0; c < S::kC2; c += kK2) {  // kK2 K chunks of W2
+        unsigned char* s = stage(kK2 * S::kW12);
+        for (int i = 0; i < kK2; ++i)
+          weights(s + i * S::kW12, &p.w2, 64 * (c + i), 0, W);
+        r.next();
+      }
+      for (int nc = 0; nc < OUT / N3; ++nc) {
+        for (int kc = 0; kc < W / 64; ++kc) {
+          weights(stage(S::kW3), &p.w3, 64 * kc, N3 * nc, N3);
+          r.next();
+        }
+        if (p.proj)
+          for (int kc = 0; kc < p.kc1; ++kc) {
+            unsigned char* s = stage(S::kXP + S::kW3);
+            source(s, tl.n, tl.tile0, kM, 64 * kc);
+            weights(s + S::kXP, &p.wd, 64 * kc, N3 * nc, N3);
+            r.next();
+          }
+      }
+    }
+    // no CTA leaves while a peer may still multicast into it or arrive on
+    // its barriers
+    if constexpr (C > 1) cluster_sync();
+  } else {
+    // ---- consumers: warpgroup wg owns output positions [64 wg, 64 wg + 64)
+#ifndef DOTS_NO_SETMAXNREG
+    setmaxnreg_inc<DOTS_REG_CONSUMER>();
+#endif
+    // the thread's indices, re-derived every tile with the addresses
+    int wg, t, fr, fc, o0;
+    // re-derived every phase from an opaque thread index, so that no
+    // address is hoisted
+    unsigned char* yb = ybuf;
+    unsigned char* my_stg = stg;   // the warpgroup's staging tile
+    uint32_t y_a = 0;
+    // at the start of every phase: values kept live across phases (and
+    // tiles) spilled
+    auto refresh = [&]() {
+      const int tt = static_cast<int>(opaque(static_cast<uint32_t>(tid)));
+      wg = tt >> 7;
+      t = tt & 127;
+      fr = ((t >> 5) << 4) + ((t & 31) >> 2);    // fragment row (and +8)
+      fc = (t & 3) << 1;                         // fragment column in an n8
+      o0 = wg << 6;
+      yb = ybuf;
+      y_a = opaque(smem_u32(ybuf));
+      my_stg = stg + wg * S::kStg;
+    };
+    Ring<S::kStages> r;
+    int prev = -1;
+    // this warp's reads of a slot are done: one arrive on its empty
+    // barrier in each CTA of the cluster (lane c: CTA c)
+    auto release = [&](int slot) {
+      __syncwarp();
+      mbar_arrive_cluster_if(&empty[slot], lane % C, lane < C);
+    };
+    auto begin = [&]() -> uint32_t {
+      bar_wait(&full[r.slot], r.phase);
+      wgmma_fence();
+      return smem_u32(ring) + r.slot * S::kSlot;
+    };
+    auto end = [&]() {               // keep one wgmma group in flight
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (prev >= 0) release(prev);
+      prev = r.slot;
       r.next();
     };
-    for (int kc = 0; kc < p.kc1; ++kc)
-      load(0, S::kM1, 64 * kc, &p.w1, 64 * kc, 0, W * 128);
-    for (int t = 0; t < 9; ++t)               // (dy, K block of 3 W)
-      for (int h = 0; h < W / 64; ++h)
-        load(0, 0, 0, &p.w2, W * t + 64 * h, 0, W * 128);
-    for (int nc = 0; nc < OUT / 128; ++nc) {
-      for (int kc = 0; kc < W / 64; ++kc)
-        load(0, 0, 0, &p.w3, 64 * kc, 128 * nc, kWBytes);
-      if (p.proj)
-        for (int kc = 0; kc < p.kc1; ++kc)
-          load(G, kM, 64 * kc, &p.wd, 64 * kc, 128 * nc, kWBytes);
-    }
-    return;
-  }
+    auto drain = [&]() {
+      wgmma_wait<0>();
+      release(prev);
+      prev = -1;
+    };
+    auto bias2 = [&](int i) {      // bias[i], bias[i + 1]
+      return *reinterpret_cast<const float2*>(bias + i);
+    };
+    // y1 / y2 elements (8 g + fc, +1) of y1 row `row`
+    auto y_at = [&](int g, int row) {
+      return reinterpret_cast<uint32_t*>(yb + g * S::kYLbo + row * 16 +
+                                         fc * 2);
+    };
 
-  // ---- consumers: warpgroup wg owns output positions [64 wg, 64 wg + 64) ----
-  const int wg = tid / 128, t = tid % 128;
-  const int fr = (t / 32) * 16 + (t % 32) / 4;   // fragment row (and +8)
-  const int fc = 2 * (t % 4);                    // fragment column in an n8
-  const int o0 = 64 * wg;
-  const uint32_t ring_a = smem_u32(ring), y_a = smem_u32(ybuf);
-  Ring r;
-  int prev = -1;
-  auto begin = [&]() -> uint32_t {
-    mbar_wait(&full[r.slot], r.phase);
-    wgmma_fence();
-    return ring_a + r.slot * S::kSlotBytes;
-  };
-  auto end = [&]() {               // keep one wgmma group in flight
-    wgmma_commit();
-    wgmma_wait<1>();
-    if (prev >= 0) mbar_arrive(&empty[prev]);
-    prev = r.slot;
-    r.next();
-  };
-  auto drain = [&]() {
-    wgmma_wait<0>();
-    mbar_arrive(&empty[prev]);
-    prev = -1;
-  };
-  const float2* bias2 = reinterpret_cast<const float2*>(bias);
-  auto y_at = [&](int ch, int row) {   // y1 / y2 element (ch, y1 row)
-    return reinterpret_cast<uint32_t*>(ybuf + (ch / 8) * S::kYLbo + row * 16 +
-                                       (ch % 8) * 2);
-  };
+    for (int g = cluster; g < groups; g += clusters) {
+      const Tile tl(g * C + rank, p.tiles, S::kTiles);
+      const int f0 = tl.tile0 - G;                   // first y1 position
+      refresh();
 
-  // conv1: y1 rows [0, kM1). Width 64: warpgroup wg takes m tiles 2 wg and
-  // 2 wg + 1, all channels; width 128: all three m tiles, channels
-  // [64 wg, 64 wg + 64).
-  {
-    constexpr int kMT = W == 64 ? 2 : 3;
-    static_assert(kMT * 64 * (W == 64 ? 2 : 1) == S::kM1, "");
-    const int mt0 = W == 64 ? 2 * wg : 0;
-    const int cb = W == 64 ? 0 : 64 * wg;
-    float acc[kMT][32];
-    for (int kc = 0; kc < p.kc1; ++kc) {
-      const uint32_t a = begin();
-      const uint32_t b = a + S::kXBytes + cb * 128;
+      // identity residual (layer1_dots' blocks 1-2), taken during conv1
+      uint32_t res[S::kIdentity ? OUT / 4 : 1];
+
+      // conv1: y1 rows [0, kM1). Width 64: warpgroup wg takes m tiles 2 wg
+      // and 2 wg + 1, all channels; width 128: all three m tiles, channels
+      // [64 wg, 64 wg + 64).
+      {
+        constexpr int kMT = W == 64 ? 2 : 3;
+        static_assert(kMT * 64 * (W == 64 ? 2 : 1) == S::kM1, "");
+        const int mt0 = W == 64 ? 2 * wg : 0;
+        const int cb = W == 64 ? 0 : 64 * wg;
+        // every accumulator starts defined (the first product overwrites
+        // it): left undefined, its last value is taken as live around the
+        // persistent loop, and the phases' accumulators could not share
+        // registers (wgmma serialized, spills)
+        float acc[kMT][32];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
+        for (int mt = 0; mt < kMT; ++mt) zero(acc[mt], 32);
+        auto stage1 = [&](int kc, bool capture) {
+          const uint32_t a = begin();
+          const uint32_t b = a + S::kX1 + cb * 128;
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          if (kMma) wgmma_n64(acc[mt], desc_sw128(a + (mt0 + mt) * 8192 + 32 * k),
-                    desc_sw128(b + 32 * k), kc | k);
-      end();
-    }
-    float2 bb[8];
+          for (int k = 0; k < 4; ++k)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) bb[j] = bias2[(cb + 8 * j + fc) / 2];
-    drain();
+            for (int mt = 0; mt < kMT; ++mt)
+              if (kMma)
+                wgmma_n64(acc[mt], desc_sw128(a + (mt0 + mt) * 8192 + 32 * k),
+                          desc_sw128(b + 32 * k), kc | k);
+          if constexpr (S::kIdentity) {
+            // the identity residual of the thread's conv3 fragments (rows
+            // o0 + fr (+8), channels 64 kc + 8 j + fc (+1)) from the source
+            // chunk's swizzled rows G + o0 + ...: conv3 loads none
+            if (capture) {
+              const unsigned char* x = ring + r.slot * S::kSlot;
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+              for (int hh = 0; hh < 2; ++hh) {
+                const int q = G + o0 + fr + 8 * hh;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int q = 64 * (mt0 + mt) + fr + 8 * hh;
-        const bool ok = f0 + q >= 0 && f0 + q < P;
+                for (int j = 0; j < 8; ++j)
+                  res[2 * (8 * kc + j) + hh] =
+                      *reinterpret_cast<const uint32_t*>(
+                          x + q * 128 + ((j ^ (fr & 7)) * 16) + fc * 2);
+              }
+            }
+          }
+          end();
+        };
+        if (S::kIdentity && !p.proj) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float v0 = fmaxf(acc[mt][4 * j + 2 * hh] + bb[j].x, 0.f);
-          const float v1 = fmaxf(acc[mt][4 * j + 2 * hh + 1] + bb[j].y, 0.f);
-          *y_at(cb + 8 * j + fc, q) = ok ? pack_bf16(v0, v1) : 0u;
+          for (int kc = 0; kc < OUT / 64; ++kc) stage1(kc, true);
+        } else {
+          for (int kc = 0; kc < p.kc1; ++kc) stage1(kc, false);
+        }
+        float2 bb[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bb[j] = bias2(cb + 8 * j + fc);
+        drain();
+        bar_sync(1, kConsumers);   // both warpgroups are done with y2
+#pragma unroll
+        for (int mt = 0; mt < (kEpi12 ? kMT : 0); ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int q = 64 * (mt0 + mt) + fr + 8 * hh;
+            const bool ok = f0 + q >= 0 && f0 + q < P;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float v0 = fmaxf(acc[mt][4 * j + 2 * hh] + bb[j].x, 0.f);
+              const float v1 =
+                  fmaxf(acc[mt][4 * j + 2 * hh + 1] + bb[j].y, 0.f);
+              *y_at(cb / 8 + j, q) = ok ? pack_bf16(v0, v1) : 0u;
+            }
+          }
+        fence_proxy_async();
+        bar_sync(1, kConsumers);
+      }
+
+      // conv2: for each dy, three K blocks of W channels, all on y1
+      // shifted by dy grid rows
+#ifndef DOTS_TILE_REFRESH
+      refresh();
+#endif
+      {
+        float acc[W / 2];
+        zero(acc, W / 2);
+        // K chunk c of W2: K block t9 = c / (W / 64) (dy = t9 / 3), its
+        // 64 channels h = c % (W / 64), on y1 shifted by dy grid rows
+        for (int c0 = 0; c0 < S::kC2; c0 += kK2) {
+          const uint32_t b = begin();
+#pragma unroll
+          for (int i = 0; i < kK2; ++i) {
+            const int c = c0 + i, t9 = c / (W / 64), h = c % (W / 64);
+            const uint32_t a =
+                y_a + 8 * h * S::kYLbo + (o0 + (t9 / 3) * G) * 16;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (kMma)
+                wgmma_n<W>(acc,
+                           desc_interleave(a + 2 * k * S::kYLbo, S::kYLbo),
+                           desc_sw128(b + i * S::kW12 + 32 * k), c | k);
+          }
+          end();
+        }
+        float2 bb[W / 8];
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) bb[j] = bias2(W + 8 * j + fc);
+        drain();
+        bar_sync(1, kConsumers);       // both warpgroups are done reading y1
+#pragma unroll
+        for (int hh = 0; hh < (kEpi12 ? 2 : 0); ++hh)
+#pragma unroll
+          for (int j = 0; j < W / 8; ++j)
+            *y_at(j, o0 + fr + 8 * hh) =
+                pack_bf16(fmaxf(acc[4 * j + 2 * hh] + bb[j].x, 0.f),
+                          fmaxf(acc[4 * j + 2 * hh + 1] + bb[j].y, 0.f));
+        fence_proxy_async();
+        bar_sync(2 + wg, 128);
+      }
+
+      // conv3 (+ projection), N3 output channels a pass
+#pragma unroll
+      for (int nc = 0; nc < OUT / N3; ++nc) {
+#ifndef DOTS_TILE_REFRESH
+        refresh();
+#endif
+        float acc[N3 / 2];
+        zero(acc, N3 / 2);
+        const int stages = W / 64 + (p.proj ? p.kc1 : 0);
+        // stage s: W3's K chunk s on y2, then the projection's on the
+        // source
+        auto products = [&](int s, uint32_t x) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const uint64_t da =
+                s < W / 64 ? desc_interleave(
+                                 y_a + (8 * s + 2 * k) * S::kYLbo + o0 * 16,
+                                 S::kYLbo)
+                           : desc_sw128(x + o0 * 128 + 32 * k);
+            const uint32_t b = s < W / 64 ? x : x + S::kXP;
+            if (kMma) wgmma_n<N3>(acc, da, desc_sw128(b + 32 * k), s | k);
+          }
+        };
+        products(0, begin());
+        end();
+        for (int s = 1; s < stages; ++s) {
+          products(s, begin());
+          end();
+        }
+        drain();
+        // kSC channels a round: staged, then 16-byte stores
+        constexpr int kCh = S::kSC / 8;            // 16-byte chunks a row
+#pragma unroll
+        for (int h2 = 0; h2 < (kEpi3 ? N3 / S::kSC : 0); ++h2) {
+          bar_sync(2 + wg, 128);     // the previous stores have read stg
+#pragma unroll
+          for (int j = 0; j < kCh; ++j) {
+            const int jj = kCh * h2 + j, c = N3 * nc + 8 * jj + fc;
+            const float2 bb = bias2(2 * W + c);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float r0 = 0.f, r1 = 0.f;
+              if constexpr (S::kIdentity) {
+                const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(
+                    &res[2 * (N3 / 8 * nc + jj) + hh]);
+                r0 = p.proj ? 0.f : __low2float(rv);
+                r1 = p.proj ? 0.f : __high2float(rv);
+              }
+              const float v0 = fmaxf(acc[4 * jj + 2 * hh] + bb.x + r0, 0.f);
+              const float v1 =
+                  fmaxf(acc[4 * jj + 2 * hh + 1] + bb.y + r1, 0.f);
+              *reinterpret_cast<uint32_t*>(
+                  my_stg + stg_at<S::kSC>(fr + 8 * hh, j) + fc * 2) =
+                  pack_bf16(v0, v1);
+            }
+          }
+          bar_sync(2 + wg, 128);
+#pragma unroll 1
+          for (unsigned i = t; i < 64 * kCh; i += 128) {
+            const int row = i / kCh, c = i % kCh;
+            const int f = tl.tile0 + o0 + row;
+            long long dst;
+            if (p.crop_h) {
+              const int ci = static_cast<int>(static_cast<unsigned>(f) / G) -
+                             p.crop_r0;
+              const int cj = static_cast<int>(static_cast<unsigned>(f) % G) -
+                             p.crop_c0;
+              if (f >= P || ci < 0 || ci >= p.crop_h || cj < 0 ||
+                  cj >= p.crop_w)
+                continue;
+              dst = (static_cast<long long>(tl.n) * p.crop_h + ci) *
+                        p.crop_w + cj;
+            } else {
+              if (f >= P) continue;
+              dst = static_cast<long long>(tl.n) * P + f;
+            }
+            const uint4 v =
+                *reinterpret_cast<const uint4*>(my_stg + stg_at<S::kSC>(row, c));
+            if (kStore && !tl.ghost)
+              *reinterpret_cast<uint4*>(p.out + dst * OUT + N3 * nc +
+                                        S::kSC * h2 + 8 * c) = v;
+          }
         }
       }
-    fence_proxy_async();
-    bar_sync(1, kConsumers);
-  }
-
-  // conv2: for each dy, three K blocks of W channels, all on y1 shifted by
-  // dy grid rows
-  {
-    float acc[W / 2];
-    for (int t9 = 0; t9 < 9; ++t9) {
-      const int row = o0 + (t9 / 3) * G;
-      for (int h = 0; h < W / 64; ++h) {
-        const uint32_t b = begin() + S::kXBytes;
-        const uint32_t a = y_a + 8 * h * S::kYLbo + row * 16;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (kMma) wgmma_n<W>(acc, desc_interleave(a + 2 * k * S::kYLbo, S::kYLbo),
-                     desc_sw128(b + 32 * k), t9 | h | k);
-        end();
-      }
     }
-    float2 bb[W / 8];
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j) bb[j] = bias2[W / 2 + (8 * j + fc) / 2];
-    drain();
-    bar_sync(1, kConsumers);       // both warpgroups are done reading y1
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int j = 0; j < W / 8; ++j)
-        *y_at(8 * j + fc, o0 + fr + 8 * hh) =
-            pack_bf16(fmaxf(acc[4 * j + 2 * hh] + bb[j].x, 0.f),
-                      fmaxf(acc[4 * j + 2 * hh + 1] + bb[j].y, 0.f));
-    fence_proxy_async();
-    bar_sync(2 + wg, 128);
-  }
-
-  // conv3 (+ projection), 128 output channels at a time
-  float acc[64];
-  float2 bb[16];
-  unsigned char* my_stg = stg + wg * kStgBytes;
-  for (int nc = 0; nc < OUT / 128; ++nc) {
-    const int stages = W / 64 + (p.proj ? p.kc1 : 0);
-    for (int s = 0; s < stages; ++s) {
-      const uint32_t x = begin();
-      const uint32_t b = x + S::kXBytes;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint64_t da =
-            s < W / 64
-                ? desc_interleave(y_a + (8 * s + 2 * k) * S::kYLbo + o0 * 16,
-                                  S::kYLbo)
-                : desc_sw128(x + o0 * 128 + 32 * k);
-        if (kMma) wgmma_n128(acc, da, desc_sw128(b + 32 * k), s | k);
-      }
-      end();
-    }
-    uint32_t res[32];              // identity residual, fetched meanwhile
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int f = tile0 + o0 + fr + 8 * hh, fw = f % p.wrap;
-      const bool ok = !p.proj && f < P;
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(
-          p.src + (ok ? n * p.frame_stride + (fw / p.seg) * p.seg_stride +
-                            static_cast<long long>(fw % p.seg) * p.cin
-                      : 0) +
-          128 * nc + fc);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) res[2 * j + hh] = ok ? src[4 * j] : 0u;
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      bb[j] = bias2[W + (128 * nc + 8 * j + fc) / 2];
-    drain();
-    bar_sync(2 + wg, 128);         // the previous chunk's stores have read stg
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = fr + 8 * hh;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const __nv_bfloat162 rv =
-            *reinterpret_cast<const __nv_bfloat162*>(&res[2 * j + hh]);
-        const float v0 =
-            fmaxf(acc[4 * j + 2 * hh] + bb[j].x + __low2float(rv), 0.f);
-        const float v1 =
-            fmaxf(acc[4 * j + 2 * hh + 1] + bb[j].y + __high2float(rv), 0.f);
-        *reinterpret_cast<uint32_t*>(my_stg + row * kStgPitch + 16 * j +
-                                     2 * fc) = pack_bf16(v0, v1);
-      }
-    }
-    bar_sync(2 + wg, 128);
-    // 16-byte stores: 16 threads per 256-byte row of 128 channels
-    for (int i = t; i < 64 * 16; i += 128) {
-      const int row = i / 16, c = i % 16, f = tile0 + o0 + row;
-      long long dst;
-      if (p.crop_h) {
-        const int ci = f / G - p.crop_r0, cj = f % G - p.crop_c0;
-        if (f >= P || ci < 0 || ci >= p.crop_h || cj < 0 || cj >= p.crop_w)
-          continue;
-        dst = (static_cast<long long>(n) * p.crop_h + ci) * p.crop_w + cj;
-      } else {
-        if (f >= P) continue;
-        dst = static_cast<long long>(n) * P + f;
-      }
-      if (kStore)
-        *reinterpret_cast<uint4*>(p.out + dst * OUT + 128 * nc + 8 * c) =
-          *reinterpret_cast<const uint4*>(my_stg + row * kStgPitch + 16 * c);
-    }
+    if constexpr (C > 1) cluster_sync();
   }
 }
 
@@ -426,20 +714,65 @@ inline int encode_weight(CUtensorMap* map, const void* w, int rows, int k,
   return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
 }
 
+#ifdef DOTS_CLUSTER
+constexpr int cluster_size(int) { return DOTS_CLUSTER; }
+#else
+constexpr int cluster_size(int c) { return c; }
+#endif
+
+// The persistent grid of a launch on N frames: CTAs a cluster and CTAs in
+// all, C x min(groups of C tiles, clusters that fit on the card at once).
+template <int G, int W, int OUT, int P, int N3, int C>
+int plan(int N, int* cluster, int* ctas) {
+  using S = Shape<G, W, OUT, P, N3, C>;
+  auto kernel = dots_block_kernel<G, W, OUT, P, N3, C>;
+  static int fits[64] = {};                // clusters at once, per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!fits[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = S::kSmemBytes;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    fits[dev] = n;
+  }
+  const int groups = (N * S::kTiles + C - 1) / C;
+  *cluster = C;
+  *ctas = C * (groups < fits[dev] ? groups : fits[dev]);
+  return 0;
+}
+
 // One launch of the block kernel; the C entry points of layer1_dots.cu and
 // layer2_dots.cu forward their arguments here. Weights K-major bf16: w1
 // [W, cin], w2 [W, 9 W] (K = (3 dy + dx block) W + c_in), w3 [OUT, W], wd
 // [OUT, cin] or null (identity residual: then cin == OUT); biases fp32.
-template <int G, int W, int OUT, int P>
+template <int G, int W, int OUT, int P, int N3, int C>
 int launch(const void* src, const void* w1, const void* w2, const void* w3,
            const void* wd, const void* b1, const void* b2, const void* b3,
            const void* bd, void* out, int N, int cin, int wrap, int seg,
            long long seg_stride, long long frame_stride, int crop_h,
            int crop_w, int crop_r0, int crop_c0, void* stream) {
-  using S = Shape<G, W, OUT, P>;
+  using S = Shape<G, W, OUT, P, N3, C>;
   if (N < 1 || cin % 64 || cin < 64 || cin > 512 || wrap < 1 || seg < 1 ||
-      (wd == nullptr && (cin != OUT || bd != nullptr)) || crop_h < 0 ||
-      crop_w < 0)
+      (wd == nullptr && (cin != OUT || bd != nullptr || !S::kIdentity)) ||
+      crop_h < 0 || crop_w < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // the box: the largest power of two up to 64 dividing G (the
   // projection's rows start G rows in) and, for a wrapped source, wrap,
@@ -461,45 +794,60 @@ int launch(const void* src, const void* w1, const void* w2, const void* w3,
         static_cast<uint64_t>(cin) * 2,
         static_cast<uint64_t>(segs > 1 ? seg_stride : 1LL * seg * cin) * 2,
         static_cast<uint64_t>(frame_stride) * 2};
-    const uint32_t boxdim[4] = {64, static_cast<uint32_t>(box), 1, 1};
     const uint32_t elem[4] = {1, 1, 1, 1};
-    const CUresult res = cuTensorMapEncodeTiled(
-        &p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(src),
-        dims, strides, boxdim, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
+    // x in boxes of box rows; xs, for a wrapped source with segments of
+    // at most 256 rows, in boxes of a whole segment
+    p.seg_box = wrapped && seg <= 256 && seg > box;
+    for (int m = 0; m < (p.seg_box ? 2 : 1); ++m) {
+      const uint32_t boxdim[4] = {
+          64, static_cast<uint32_t>(m ? seg : box), 1, 1};
+      const CUresult res = cuTensorMapEncodeTiled(
+          m ? &p.xs : &p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+          const_cast<void*>(src), dims, strides, boxdim, elem,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
+    }
   }
-  if ((err = encode_weight(&p.w1, w1, W, cin, W))) return err;
-  if ((err = encode_weight(&p.w2, w2, W, 9 * W, W))) return err;
-  if ((err = encode_weight(&p.w3, w3, OUT, W, 128))) return err;
-  if ((err = encode_weight(&p.wd, wd ? wd : w3, OUT, wd ? cin : W, 128)))
+  // each CTA of a cluster loads 1 / C of a chunk's rows
+  if ((err = encode_weight(&p.w1, w1, W, cin, W / C))) return err;
+  if ((err = encode_weight(&p.w2, w2, W, 9 * W, W / C))) return err;
+  if ((err = encode_weight(&p.w3, w3, OUT, W, N3 / C))) return err;
+  if ((err = encode_weight(&p.wd, wd ? wd : w3, OUT, wd ? cin : W, N3 / C)))
     return err;
-  p.src = static_cast<const __nv_bfloat16*>(src);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.b1 = static_cast<const float*>(b1);
   p.b2 = static_cast<const float*>(b2);
   p.b3 = static_cast<const float*>(b3);
   p.bd = static_cast<const float*>(bd);
-  p.frame_stride = frame_stride;
-  p.seg_stride = seg_stride;
   p.wrap = wrap;
   p.seg = seg;
-  p.cin = cin;
   p.box = box;
   p.kc1 = cin / 64;
   p.proj = wd != nullptr;
+  p.tiles = N * S::kTiles;
   p.crop_h = crop_h;
   p.crop_w = crop_w;
   p.crop_r0 = crop_r0;
   p.crop_c0 = crop_c0;
-  cudaError_t e = cudaFuncSetAttribute(
-      dots_block_kernel<G, W, OUT, P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
+  int cluster = 0, ctas = 0;
+  if ((err = plan<G, W, OUT, P, N3, C>(N, &cluster, &ctas))) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = S::kSmemBytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e =
+      cudaLaunchKernelEx(&cfg, dots_block_kernel<G, W, OUT, P, N3, C>, p);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dots_block_kernel<G, W, OUT, P>
-      <<<N * S::kTiles, kThreads, S::kSmemBytes,
-         static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

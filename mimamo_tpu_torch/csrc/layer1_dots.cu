@@ -18,13 +18,22 @@
 // the repeated rows (layer1_dots_kernel.needed_work).
 #include "dots_block.cuh"
 
+namespace {
+constexpr int kCluster = dots::cluster_size(4);
+}
+
 extern "C" int mimamo_layer1_dots_block(
     const void* src, const void* w1, const void* w2, const void* w3,
     const void* wd, const void* b1, const void* b2, const void* b3,
     const void* bd, void* out, int N, int cin, int wrap, int seg,
     long long seg_stride, long long frame_stride, int crop_h, int crop_w,
     int crop_r0, int crop_c0, void* stream) {
-  return dots::launch<64, 64, 256, 58 * 64>(
+  return dots::launch<64, 64, 256, 58 * 64, 128, kCluster>(
       src, w1, w2, w3, wd, b1, b2, b3, bd, out, N, cin, wrap, seg, seg_stride,
       frame_stride, crop_h, crop_w, crop_r0, crop_c0, stream);
+}
+
+// The persistent grid a launch on N frames takes: CTAs a cluster, CTAs.
+extern "C" int mimamo_layer1_dots_plan(int N, int* cluster, int* ctas) {
+  return dots::plan<64, 64, 256, 58 * 64, 128, kCluster>(N, cluster, ctas);
 }

@@ -25,13 +25,26 @@
 // every block.
 #include "dots_block.cuh"
 
+#ifndef DOTS_L2_N3
+#define DOTS_L2_N3 256
+#endif
+
+namespace {
+constexpr int kCluster = dots::cluster_size(4);
+}
+
 extern "C" int mimamo_layer2_dots_block(
     const void* src, const void* w1, const void* w2, const void* w3,
     const void* wd, const void* b1, const void* b2, const void* b3,
     const void* bd, void* out, int N, int cin, int wrap, int seg,
     long long seg_stride, long long frame_stride, int crop_h, int crop_w,
     int crop_r0, int crop_c0, void* stream) {
-  return dots::launch<32, 128, 512, 30 * 32>(
+  return dots::launch<32, 128, 512, 30 * 32, DOTS_L2_N3, kCluster>(
       src, w1, w2, w3, wd, b1, b2, b3, bd, out, N, cin, wrap, seg, seg_stride,
       frame_stride, crop_h, crop_w, crop_r0, crop_c0, stream);
+}
+
+// The persistent grid a launch on N frames takes: CTAs a cluster, CTAs.
+extern "C" int mimamo_layer2_dots_plan(int N, int* cluster, int* ctas) {
+  return dots::plan<32, 128, 512, 30 * 32, DOTS_L2_N3, kCluster>(N, cluster, ctas);
 }

@@ -16,18 +16,20 @@ where ``res`` is the projection ``s . Wd (+ bd)`` or the identity ``s``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ._build import LL, I, P, Kernel
+from ._build import LL, I, P, Kernel, library
 
 # the C entry points' arguments: src, w1, w2, w3, wd, b1, b2, b3, bd, out;
 # N, cin, wrap, seg; seg_stride, frame_stride; the crop; the stream
 ARGTYPES = [P] * 10 + [I] * 4 + [LL] * 2 + [I] * 4 + [P]
+TILE_M = 128          # output positions a CTA's tile (the kernel's kM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +169,16 @@ def run(kernel: Kernel, x: torch.Tensor, blocks: Sequence[DotsBlock],
     return src
 
 
+def chain_bytes(first_in: int, state: int, last_out: int,
+                blocks: int) -> int:
+    """Bytes a frame that a chain of ``blocks`` launches must move through
+    device memory, bf16: block 0 reads its ``first_in`` input elements once,
+    every launch but the last writes the ``state`` elements the next one
+    reads, the last writes ``last_out``. The floor of any one-launch-a-
+    block design (weights left out: read once, they are a few MB)."""
+    return 2 * (first_in + 2 * (blocks - 1) * state + last_out)
+
+
 def needed_work(source: np.ndarray, grid_w: int,
                 crop: Tuple[int, int, int, int],
                 dims: Sequence[Tuple[int, int, int, bool]]
@@ -220,3 +232,125 @@ def needed_work(source: np.ndarray, grid_w: int,
     rows_needed = np.zeros(int(np.max(source)) + 1, bool)
     rows_needed[np.asarray(source)[live]] = True
     return flops, rows_needed
+
+
+# -- the kernel's plan, mirrored on the host (csrc/dots_block.cuh) ----------
+
+
+def schedule(n: int, tiles_per_frame: int, cluster: int, clusters: int
+             ) -> List[List[Optional[int]]]:
+    """The tiles each CTA of the persistent grid computes, in order (CTA
+    ``k * cluster + r`` at index ``k * cluster + r``): rank r of cluster k
+    takes tile ``g * cluster + r`` of every group g = k, k + clusters, ...
+    of ``ceil(tiles / cluster)`` groups of neighbouring tiles. Past the last
+    tile it is a ghost (None): it computes the last tile again and stores
+    nothing, so that the cluster's CTAs walk the same loads."""
+    tiles = n * tiles_per_frame
+    groups = -(-tiles // cluster)
+    return [[g * cluster + r if g * cluster + r < tiles else None
+             for g in range(k, groups, clusters)]
+            for k in range(clusters) for r in range(cluster)]
+
+
+def grid(n: int, tiles_per_frame: int, cluster: int, fits: int) -> int:
+    """Clusters of the persistent grid: one a group of tiles, at most the
+    ``fits`` that the card holds at once (the kernel's ``plan``)."""
+    return min(-(-n * tiles_per_frame // cluster), fits)
+
+
+def box_rows(rows: RowMap, grid_w: int, positions: int) -> int:
+    """Source rows a TMA box: the largest power of two up to 64 that
+    divides ``grid_w`` and, for a wrapped source, wrap, seg and the grid's
+    positions (the kernel's ``launch``)."""
+    wrapped = rows.wrap < positions
+    box = 64
+    while grid_w % box or (wrapped and (rows.wrap % box or rows.seg % box
+                                        or positions % box)):
+        box //= 2
+    return box
+
+
+def read_rows(src: torch.Tensor, rows: RowMap, box: int, positions: int,
+              n: int, f: int, count: int) -> torch.Tensor:
+    """Positions ``[f, f + count)`` of frame n of a block's input, ``[count,
+    cin]``, read as the kernel's TMA boxes read them: box b at (row
+    ``c1``, segment ``c2``) of the 4-D map ``[N, segments, seg, cin]``,
+    rows outside the map zero (a wrapped source points a box outside
+    ``[0, P)`` before the segment's first row)."""
+    flat = src.reshape(-1)
+    wrapped = rows.wrap < positions
+    seg_len = rows.seg if wrapped else positions
+    segs = rows.wrap // rows.seg if wrapped else 1
+    seg_stride = rows.seg_stride if segs > 1 else rows.seg * rows.cin
+    out = torch.zeros((count, rows.cin), dtype=src.dtype)
+    for b in range(count // box):
+        fb = f + b * box
+        c1, c2 = fb, 0
+        if wrapped:
+            inside = 0 <= fb < positions
+            c1 = fb % rows.wrap % rows.seg if inside else -box
+            c2 = fb % rows.wrap // rows.seg if inside else 0
+        for i in range(box):
+            if 0 <= c1 + i < seg_len and c2 < segs:
+                at = n * rows.frame + c2 * seg_stride + (c1 + i) * rows.cin
+                out[b * box + i] = flat[at:at + rows.cin]
+    return out
+
+
+def block_by_tiles(src: torch.Tensor, rows: RowMap, blk: DotsBlock,
+                   grid_w: int, positions: int, cluster: int, clusters: int,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One block computed as the kernel's plan computes it: tile by tile in
+    the persistent grid's order, each tile from the source rows its boxes
+    read (y1 on the tile and one grid row either side, zero outside the
+    frame), ghosts storing nothing. Same arithmetic as
+    :func:`dots_block_plain`; ``[N, P, OUT]`` bf16."""
+    n_frames = src.shape[0]
+    per_frame = -(-positions // TILE_M)
+    box = box_rows(rows, grid_w, positions)
+    width, out_w = blk.w1.shape[0], blk.w3.shape[0]
+    cast = lambda t: t.to(dtype)
+    w2 = cast(blk.w2).reshape(width, 3, 3 * width)
+    out = torch.full((n_frames, positions, out_w), float("nan"),
+                     dtype=src.dtype)
+    rows1 = TILE_M + 2 * grid_w
+    for cta in schedule(n_frames, per_frame, cluster, clusters):
+        for tile in cta:
+            if tile is None:
+                continue
+            n, tile0 = tile // per_frame, tile % per_frame * TILE_M
+            f = np.arange(tile0 - grid_w, tile0 - grid_w + rows1)
+            v = cast(read_rows(src, rows, box, positions, n, tile0 - grid_w,
+                               rows1))
+            y1 = F.relu(v @ cast(blk.w1).T + cast(blk.b1)).to(src.dtype)
+            y1[torch.from_numpy((f < 0) | (f >= positions))] = 0
+            a = torch.cat([y1] * 3, dim=1)
+            acc = sum(cast(a[dy * grid_w:dy * grid_w + TILE_M]) @ w2[:, dy].T
+                      for dy in range(3))
+            y2 = F.relu(acc + cast(blk.b2)).to(src.dtype)
+            x = cast(read_rows(src, rows, box, positions, n, tile0, TILE_M))
+            res = x
+            if blk.wd is not None:
+                res = x @ cast(blk.wd).T
+                if blk.bd is not None:
+                    res = res + cast(blk.bd)
+            y3 = cast(y2) @ cast(blk.w3).T + cast(blk.b3)
+            keep = min(TILE_M, positions - tile0)
+            out[n, tile0:tile0 + keep] = F.relu(y3 + res).to(
+                src.dtype)[:keep]
+    return out
+
+
+def launch_plan(symbol: str, n: int) -> Tuple[int, int]:
+    """(CTAs a cluster, CTAs) of the persistent grid that a launch on n
+    frames takes on the current card: the C entry ``symbol``
+    (``mimamo_layer1_dots_plan``, ``mimamo_layer2_dots_plan``)."""
+    fn = getattr(library(), symbol)
+    fn.argtypes = [I, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    cluster, ctas = ctypes.c_int(), ctypes.c_int()
+    err = fn(n, ctypes.byref(cluster), ctypes.byref(ctas))
+    if err:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    return cluster.value, ctas.value

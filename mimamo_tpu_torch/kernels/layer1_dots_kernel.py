@@ -37,6 +37,9 @@ from ._build import Kernel
 from .dots_block import DotsBlock
 
 KERNEL = Kernel("mimamo_layer1_dots_block", dots_block.ARGTYPES)
+PLAN = "mimamo_layer1_dots_plan"   # C entry: the persistent grid
+CLUSTER = 4                      # CTAs a cluster (csrc/layer1_dots.cu)
+N3 = 128                         # output channels a conv3 pass
 GRID_H, GRID_W = 58, 64          # padded 56 x 56 grid, row stride 64
 P = GRID_H * GRID_W              # 3,712 positions a frame
 WIDTH, OUT_W, C_IN = 64, 256, 64
@@ -55,6 +58,14 @@ def dot_flops_per_frame() -> float:
     fl += 2.0 * BLOCKS * 3 * P * (3 * WIDTH) * WIDTH  # conv2, 3 dots K = 192
     fl += 2.0 * BLOCKS * P * WIDTH * OUT_W           # conv3
     return fl
+
+
+def hbm_floor_bytes() -> int:
+    """Bytes a frame the 3-launch chain must move: the 3,136 x 64 input,
+    the [3712, 256] state written and read twice, the 56 x 56 x 256 output
+    (9.61 MB; 1.10 ms at 384 frames at 3.35 TB/s)."""
+    return dots_block.chain_bytes(IN_HW * IN_HW * C_IN, P * OUT_W,
+                                  IN_HW * IN_HW * OUT_W, BLOCKS)
 
 
 def needed_work() -> Tuple[float, np.ndarray]:

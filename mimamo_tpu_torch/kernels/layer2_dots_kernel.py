@@ -40,6 +40,9 @@ from ._build import Kernel
 from .dots_block import DotsBlock
 
 KERNEL = Kernel("mimamo_layer2_dots_block", dots_block.ARGTYPES)
+PLAN = "mimamo_layer2_dots_plan"   # C entry: the persistent grid
+CLUSTER = 4                      # CTAs a cluster (csrc/layer2_dots.cu)
+N3 = 256                         # output channels a conv3 pass
 BLOCKS, C_IN, WIDTH, OUT_W = 4, 256, 128, 512
 GRID_H, GRID_W = 30, 32          # padded 28 x 28 grid, row stride 32
 P = GRID_H * GRID_W              # 960 positions a frame
@@ -52,6 +55,14 @@ def dot_flops_per_frame() -> float:
     per_block = (OUT_W * WIDTH + 3 * 3 * WIDTH * WIDTH + WIDTH * OUT_W
                  + OUT_W * OUT_W)
     return 2.0 * BLOCKS * P * per_block
+
+
+def hbm_floor_bytes() -> int:
+    """Bytes a frame the 4-launch chain must move: the 784 x 512 even-row
+    plane, the [960, 512] state written and read three times, the 28 x 28 x
+    512 output (7.50 MB; 0.86 ms at 384 frames at 3.35 TB/s)."""
+    return dots_block.chain_bytes(PLANE * OUT_W, P * OUT_W, 28 * 28 * OUT_W,
+                                  BLOCKS)
 
 
 def needed_work() -> Tuple[float, np.ndarray]:

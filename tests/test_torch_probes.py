@@ -316,6 +316,72 @@ def test_dots_wrappers_reject_bad_input():
                                    dtype=torch.bfloat16), dots)
 
 
+# -- the kernels' persistent plan (csrc/dots_block.cuh), on the host --------
+
+@pytest.mark.parametrize("n", [1, 3, 5, 384])
+@pytest.mark.parametrize("mod", [l1, l2d], ids=["layer1", "layer2"])
+def test_dots_schedule_covers_every_tile_once(mod, n):
+    """The persistent grid at N frames, on a card that holds 33 clusters
+    of 4 at once (132 SMs) and on one that holds 2: every output tile is
+    computed by exactly one CTA; the CTAs of a cluster walk the same number
+    of groups of neighbouring tiles; ghosts (a group past the last tile,
+    the odd tile counts of layer1's 29 a frame) only in the last group."""
+    per_frame = -(-mod.P // dots_block.TILE_M)
+    tiles = n * per_frame
+    for fits in (132 // mod.CLUSTER, 2):
+        clusters = dots_block.grid(n, per_frame, mod.CLUSTER, fits)
+        assert clusters == min(-(-tiles // mod.CLUSTER), fits)
+        plan = dots_block.schedule(n, per_frame, mod.CLUSTER, clusters)
+        assert len(plan) == clusters * mod.CLUSTER
+        done = [t for cta in plan for t in cta if t is not None]
+        assert sorted(done) == list(range(tiles))
+        ghosts = sum(t is None for cta in plan for t in cta)
+        assert ghosts == -tiles % mod.CLUSTER
+        for k in range(clusters):
+            ctas = plan[k * mod.CLUSTER:(k + 1) * mod.CLUSTER]
+            assert len({len(cta) for cta in ctas}) == 1
+            for i, group in enumerate(zip(*ctas)):
+                g = k + i * clusters
+                assert all(t in (g * mod.CLUSTER + r, None)
+                           for r, t in enumerate(group))
+                assert None not in group or g == -(-tiles // mod.CLUSTER) - 1
+
+
+def _plan_cases():
+    l1_blocks = l1.pack_layer1_dots(layer1_probe.dots_weights())
+    l2_blocks = l2d.pack_layer2_dots(layer2_probe.probe_weights(0)[1])
+    gen = torch.Generator().manual_seed(11)
+    x1 = torch.randn((2, 56, 56, 64), generator=gen).to(torch.bfloat16)
+    state1 = torch.randn((2, l1.P, 256), generator=gen).to(torch.bfloat16)
+    x2 = torch.randn((1, 28, 2, 28, 512), generator=gen).to(torch.bfloat16)
+    return {
+        "layer1-block0": (l1, x1, l1.source_rows()[0], l1_blocks[0]),
+        "layer1-block1": (l1, state1, l1.source_rows()[1], l1_blocks[1]),
+        "layer2-block0": (l2d, x2, l2d.source_rows()[0], l2_blocks[0]),
+    }
+
+
+@pytest.mark.parametrize("case", ["layer1-block0", "layer1-block1",
+                                  "layer2-block0"])
+def test_dots_plan_emulation_is_the_plain_block(case):
+    """A block computed as the kernel's plan computes it (tile by tile in
+    the persistent order of 3 clusters, sources read box by box through the
+    row map, y1 zero outside the frame, ghosts storing nothing) gives
+    ``dots_block_plain``'s output bit for bit: the wrapped layer1 input
+    with the projection, a stored state with the identity residual, the
+    layer2 plane (4-row boxes) with the projection. Both in float64: a
+    float32 product on the CPU rounds differently on 128 rows than on a
+    frame's, which moved 19 of 491,520 layer2 outputs by a bf16 ulp."""
+    mod, src, rows, blk = _plan_cases()[case]
+    want = dots_block.dots_block_plain(gather_rows(src, rows, mod.P), blk,
+                                       mod.GRID_W, torch.float64)
+    got = dots_block.block_by_tiles(src, rows, blk, mod.GRID_W, mod.P,
+                                    mod.CLUSTER, 3, torch.float64)
+    assert dots_block.box_rows(rows, mod.GRID_W, mod.P) == (
+        {l1: 64, l2d: 4}[mod] if rows.wrap < mod.P else {l1: 64, l2d: 32}[mod])
+    assert torch.equal(got, want)
+
+
 # -- the entry points -------------------------------------------------------
 
 @pytest.mark.parametrize("argv", [
