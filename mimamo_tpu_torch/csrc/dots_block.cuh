@@ -138,8 +138,10 @@ constexpr int kK2 = DOTS_K2;
 
 struct Params {
   // the source in boxes of box rows (x) and of a whole segment (xs); the
-  // weights
-  CUtensorMap x, xs, w1, w2, w3, wd;
+  // weights; the output in boxes of 64 positions x 64 channels (yo: the
+  // whole state [N, P, OUT], or a crop whose rows are whole grid rows of 64
+  // positions, [N, crop_h, crop_w, OUT])
+  CUtensorMap x, xs, w1, w2, w3, wd, yo;
   __nv_bfloat16* out;
   const float* b1;
   const float* b2;
@@ -148,6 +150,7 @@ struct Params {
   int wrap, seg;
   int box;                  // source rows a TMA box
   int seg_box;              // xs holds whole segments (a wrapped source)
+  int tma_out;              // stores through yo: 1 the state, 2 a crop
   int kc1;                  // 64-channel K chunks of conv1 and the projection
   int proj;                 // projection (else identity residual)
   int tiles;                // N x tiles a frame
@@ -432,7 +435,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
     setmaxnreg_inc<DOTS_REG_CONSUMER>();
 #endif
     // the thread's indices, re-derived every tile with the addresses
-    int wg, t, fr, fc, o0;
+    int wg = tid / 128, t = tid % 128, fr = 0, fc = 0, o0 = 0;
     // re-derived every phase from an opaque thread index, so that no
     // address is hoisted
     unsigned char* yb = ybuf;
@@ -488,7 +491,11 @@ dots_block_kernel(const __grid_constant__ Params p) {
     for (int g = cluster; g < groups; g += clusters) {
       const Tile tl(g * C + rank, p.tiles, S::kTiles);
       const int f0 = tl.tile0 - G;                   // first y1 position
+      // a warpgroup whose 64 positions all lie past the grid (the second
+      // half of the layer2 dots' last tile a frame) skips conv2 and conv3
+      bool live = true;
       refresh();
+      live = tl.tile0 + o0 < P;
 
       // identity residual (layer1_dots' blocks 1-2), taken during conv1
       uint32_t res[S::kIdentity ? OUT / 4 : 1];
@@ -585,7 +592,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
                 y_a + 8 * h * S::kYLbo + (o0 + (t9 / 3) * G) * 16;
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              if (kMma)
+              if (kMma && live)
                 wgmma_n<W>(acc,
                            desc_interleave(a + 2 * k * S::kYLbo, S::kYLbo),
                            desc_sw128(b + i * S::kW12 + 32 * k), c | k);
@@ -628,7 +635,8 @@ dots_block_kernel(const __grid_constant__ Params p) {
                                  S::kYLbo)
                            : desc_sw128(x + o0 * 128 + 32 * k);
             const uint32_t b = s < W / 64 ? x : x + S::kXP;
-            if (kMma) wgmma_n<N3>(acc, da, desc_sw128(b + 32 * k), s | k);
+            if (kMma && live)
+              wgmma_n<N3>(acc, da, desc_sw128(b + 32 * k), s | k);
           }
         };
         products(0, begin());
@@ -642,6 +650,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
         constexpr int kCh = S::kSC / 8;            // 16-byte chunks a row
 #pragma unroll
         for (int h2 = 0; h2 < (kEpi3 ? N3 / S::kSC : 0); ++h2) {
+          if (p.tma_out && t == 0) bulk_wait_read<0>();
           bar_sync(2 + wg, 128);     // the previous stores have read stg
 #pragma unroll
           for (int j = 0; j < kCh; ++j) {
@@ -663,6 +672,24 @@ dots_block_kernel(const __grid_constant__ Params p) {
                   my_stg + stg_at<S::kSC>(fr + 8 * hh, j) + fc * 2) =
                   pack_bf16(v0, v1);
             }
+          }
+          if (p.tma_out) {
+            // one TMA store of the staged tile: the warpgroup goes on
+            // while the copy engine writes it (rows past P are clipped)
+            fence_proxy_async();
+            bar_sync(2 + wg, 128);
+            const int ch = N3 * nc + S::kSC * h2;
+            const int cr = (tl.tile0 + o0) / G - p.crop_r0;   // crop row
+            if (t == 0 && kStore && !tl.ghost) {
+              if (p.tma_out == 1) {
+                tma_store_3d(&p.yo, my_stg, ch, tl.tile0 + o0, tl.n);
+                bulk_commit();
+              } else if (cr >= 0 && cr < p.crop_h) {
+                tma_store_4d(&p.yo, my_stg, ch, 0, cr, tl.n);
+                bulk_commit();
+              }
+            }
+            continue;
           }
           bar_sync(2 + wg, 128);
 #pragma unroll 1
@@ -693,6 +720,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
         }
       }
     }
+    if (t == 0) bulk_wait<0>();    // the last stores have left shared memory
     if constexpr (C > 1) cluster_sync();
   }
 }
@@ -810,6 +838,45 @@ int launch(const void* src, const void* w1, const void* w2, const void* w3,
       if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
     }
   }
+  p.tma_out = 0;
+#ifndef DOTS_LSU_STORE
+  if (crop_h && G == 64 && crop_c0 == 0 && crop_w <= 64) {
+    // a crop of whole grid rows from column 0: a warpgroup's 64 positions
+    // are one grid row, its columns past crop_w clipped
+    const uint64_t dims[4] = {
+        static_cast<uint64_t>(OUT), static_cast<uint64_t>(crop_w),
+        static_cast<uint64_t>(crop_h), static_cast<uint64_t>(N)};
+    const uint64_t strides[3] = {
+        static_cast<uint64_t>(OUT) * 2,
+        static_cast<uint64_t>(crop_w) * OUT * 2,
+        static_cast<uint64_t>(crop_h) * crop_w * OUT * 2};
+    const uint32_t boxdim[4] = {64, 64, 1, 1};
+    const uint32_t elem[4] = {1, 1, 1, 1};
+    const CUresult res = cuTensorMapEncodeTiled(
+        &p.yo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, out, dims, strides,
+        boxdim, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
+    p.tma_out = 2;
+  }
+  if (!crop_h) {
+    const uint64_t dims[3] = {static_cast<uint64_t>(OUT),
+                              static_cast<uint64_t>(P),
+                              static_cast<uint64_t>(N)};
+    const uint64_t strides[2] = {static_cast<uint64_t>(OUT) * 2,
+                                 static_cast<uint64_t>(P) * OUT * 2};
+    const uint32_t boxdim[3] = {64, 64, 1};
+    const uint32_t elem[3] = {1, 1, 1};
+    const CUresult res = cuTensorMapEncodeTiled(
+        &p.yo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, out, dims, strides,
+        boxdim, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
+    p.tma_out = 1;
+  }
+#endif
   // each CTA of a cluster loads 1 / C of a chunk's rows
   if ((err = encode_weight(&p.w1, w1, W, cin, W / C))) return err;
   if ((err = encode_weight(&p.w2, w2, W, 9 * W, W / C))) return err;

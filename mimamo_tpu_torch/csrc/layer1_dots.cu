@@ -19,7 +19,7 @@
 #include "dots_block.cuh"
 
 namespace {
-constexpr int kCluster = dots::cluster_size(4);
+constexpr int kCluster = dots::cluster_size(2);
 }
 
 extern "C" int mimamo_layer1_dots_block(

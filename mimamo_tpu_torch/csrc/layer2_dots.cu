@@ -30,7 +30,7 @@
 #endif
 
 namespace {
-constexpr int kCluster = dots::cluster_size(4);
+constexpr int kCluster = dots::cluster_size(1);
 }
 
 extern "C" int mimamo_layer2_dots_block(

@@ -270,30 +270,55 @@ def box_rows(rows: RowMap, grid_w: int, positions: int) -> int:
     return box
 
 
+def segment_boxes(rows: RowMap, box: int, positions: int) -> bool:
+    """Whether the kernel reads this source's whole segments as one box
+    each (a wrapped source with segments of at most 256 rows, longer than
+    ``box``: the layer2 plane's 28-pixel rows)."""
+    return rows.wrap < positions and rows.seg <= 256 and rows.seg > box
+
+
+def box_plan(rows: RowMap, box: int, positions: int, f: int, count: int
+             ) -> List[Tuple[int, int, int, int]]:
+    """The TMA boxes the kernel's producer issues for positions ``[f, f +
+    count)`` of a frame (``source`` in ``csrc/dots_block.cuh``): (first row
+    in the window, rows, row in segment ``c1``, segment ``c2``). Rows of a
+    box outside the map read zero (``c1 = -box`` for positions outside the
+    frame of a wrapped source)."""
+    plan = []
+    for b in range(count // box):
+        fb = f + b * box
+        c1, c2, n_rows = fb, 0, box
+        if rows.wrap < positions:
+            inside = 0 <= fb < positions
+            c1 = fb % rows.wrap % rows.seg if inside else -box
+            c2 = fb % rows.wrap // rows.seg if inside else 0
+            s0 = fb - c1
+            if (segment_boxes(rows, box, positions) and inside and s0 >= f
+                    and s0 + rows.seg <= min(f + count, positions)):
+                if c1:
+                    continue
+                n_rows = rows.seg
+        plan.append((b * box, n_rows, c1, c2))
+    return plan
+
+
 def read_rows(src: torch.Tensor, rows: RowMap, box: int, positions: int,
               n: int, f: int, count: int) -> torch.Tensor:
     """Positions ``[f, f + count)`` of frame n of a block's input, ``[count,
-    cin]``, read as the kernel's TMA boxes read them: box b at (row
-    ``c1``, segment ``c2``) of the 4-D map ``[N, segments, seg, cin]``,
-    rows outside the map zero (a wrapped source points a box outside
-    ``[0, P)`` before the segment's first row)."""
+    cin]``, read as the kernel's TMA boxes (:func:`box_plan`) read them
+    from the 4-D map ``[N, segments, seg, cin]``: rows outside the map
+    zero."""
     flat = src.reshape(-1)
     wrapped = rows.wrap < positions
     seg_len = rows.seg if wrapped else positions
     segs = rows.wrap // rows.seg if wrapped else 1
     seg_stride = rows.seg_stride if segs > 1 else rows.seg * rows.cin
     out = torch.zeros((count, rows.cin), dtype=src.dtype)
-    for b in range(count // box):
-        fb = f + b * box
-        c1, c2 = fb, 0
-        if wrapped:
-            inside = 0 <= fb < positions
-            c1 = fb % rows.wrap % rows.seg if inside else -box
-            c2 = fb % rows.wrap // rows.seg if inside else 0
-        for i in range(box):
+    for q, n_rows, c1, c2 in box_plan(rows, box, positions, f, count):
+        for i in range(n_rows):
             if 0 <= c1 + i < seg_len and c2 < segs:
                 at = n * rows.frame + c2 * seg_stride + (c1 + i) * rows.cin
-                out[b * box + i] = flat[at:at + rows.cin]
+                out[q + i] = flat[at:at + rows.cin]
     return out
 
 

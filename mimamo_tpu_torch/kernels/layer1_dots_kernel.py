@@ -38,7 +38,7 @@ from .dots_block import DotsBlock
 
 KERNEL = Kernel("mimamo_layer1_dots_block", dots_block.ARGTYPES)
 PLAN = "mimamo_layer1_dots_plan"   # C entry: the persistent grid
-CLUSTER = 4                      # CTAs a cluster (csrc/layer1_dots.cu)
+CLUSTER = 2                      # CTAs a cluster (csrc/layer1_dots.cu)
 N3 = 128                         # output channels a conv3 pass
 GRID_H, GRID_W = 58, 64          # padded 56 x 56 grid, row stride 64
 P = GRID_H * GRID_W              # 3,712 positions a frame

@@ -41,7 +41,7 @@ from .dots_block import DotsBlock
 
 KERNEL = Kernel("mimamo_layer2_dots_block", dots_block.ARGTYPES)
 PLAN = "mimamo_layer2_dots_plan"   # C entry: the persistent grid
-CLUSTER = 4                      # CTAs a cluster (csrc/layer2_dots.cu)
+CLUSTER = 1                      # CTAs a cluster (csrc/layer2_dots.cu)
 N3 = 256                         # output channels a conv3 pass
 BLOCKS, C_IN, WIDTH, OUT_W = 4, 256, 128, 512
 GRID_H, GRID_W = 30, 32          # padded 28 x 28 grid, row stride 32

@@ -347,6 +347,35 @@ def test_dots_schedule_covers_every_tile_once(mod, n):
                 assert None not in group or g == -(-tiles // mod.CLUSTER) - 1
 
 
+@pytest.mark.parametrize("mod", [l1, l2d], ids=["layer1", "layer2"])
+def test_dots_box_plan_covers_each_window_row_once(mod):
+    """The producer's boxes (``dots_block.box_plan``) for every conv1 and
+    projection window of a frame: each window row once, each box inside one
+    segment of the map; the layer2 plane (28-pixel segments) in whole
+    segments and 4-row pieces, at most 18 boxes for the frame's rows of a
+    192-row window where 4-row boxes alone took 48."""
+    per_frame = -(-mod.P // dots_block.TILE_M)
+    for b, rows in enumerate(mod.source_rows()[:2]):
+        box = dots_block.box_rows(rows, mod.GRID_W, mod.P)
+        pieces = dots_block.segment_boxes(rows, box, mod.P)
+        for t in range(per_frame):
+            tile0 = t * dots_block.TILE_M
+            for f, count in ((tile0 - mod.GRID_W,
+                              dots_block.TILE_M + 2 * mod.GRID_W),
+                             (tile0, dots_block.TILE_M)):
+                plan = dots_block.box_plan(rows, box, mod.P, f, count)
+                covered = sorted(q + i for q, n, _, _ in plan
+                                 for i in range(n))
+                assert covered == list(range(count))
+                for q, n, c1, c2 in plan:
+                    assert n in ((box, rows.seg) if pieces else (box,))
+                    if rows.wrap < mod.P and c1 >= 0:
+                        assert c1 + n <= rows.seg
+                if pieces and count > dots_block.TILE_M:
+                    assert sum(0 <= f + q < mod.P
+                               for q, _, _, _ in plan) <= 18
+
+
 def _plan_cases():
     l1_blocks = l1.pack_layer1_dots(layer1_probe.dots_weights())
     l2_blocks = l2d.pack_layer2_dots(layer2_probe.probe_weights(0)[1])
