@@ -1953,7 +1953,7 @@ def check_probes(line: str):
                       ("layer2_g4_dots", layer2_dots_kernel)):
         regs = [r for r in ptxas if f"ILi{mod.GRID_W}ELi{mod.WIDTH}E" in r[0]]
         print(json.dumps({f"{name}_build": {
-            "registers_spill_stores_loads": [r[1:] for r in regs],
+            "registers_spill_stores_loads_serialized": [r[1:] for r in regs],
             "cluster_ctas": {n: dots_block.launch_plan(mod.PLAN, n)
                              for n in DOTS_CHECK_FRAMES + (B * T,)},
             "card": line}}), flush=True)

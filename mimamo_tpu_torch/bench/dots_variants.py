@@ -117,9 +117,13 @@ def build(variants: dict, src: Path, out: Path) -> tuple:
 
 
 def ptxas_report(log: str) -> list:
-    """(kernel, registers, spill stores, spill loads) of each dots kernel
-    in a ptxas report."""
+    """(kernel, registers, spill stores, spill loads, serialized) of each
+    dots kernel in a ptxas report; serialized: ptxas made its wgmma wait
+    one for another (C7510-C7520 performance notes)."""
     rows, kernel, spills = [], None, (0, 0)
+    serialized = {m.group(1) for m in re.finditer(
+        r"wgmma.mma_async instructions are serialized.*function '(\w+)'",
+        log)}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -130,7 +134,8 @@ def ptxas_report(log: str) -> list:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel and "dots" in kernel:
-            rows.append((kernel, int(m.group(1)), *spills))
+            rows.append((kernel, int(m.group(1)), *spills,
+                         kernel in serialized))
     return rows
 
 
@@ -182,7 +187,9 @@ def main(argv=None) -> int:
     for i, name in enumerate(variants):
         grids = {}
         for probe in ("layer1", "layer2"):
-            fn = getattr(cdll, f"mimamo_{probe}_dots_plan_v{i}")
+            fn = getattr(cdll, f"mimamo_{probe}_dots_plan_v{i}", None)
+            if fn is None:            # a source without a persistent grid
+                continue
             fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                            ctypes.POINTER(ctypes.c_int)]
             cl, ctas = ctypes.c_int(), ctypes.c_int()

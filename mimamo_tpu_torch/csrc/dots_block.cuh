@@ -95,8 +95,11 @@ using namespace hopper;
 // Cut-down variants for timing (bench/dots_variants.py): DOTS_NO_LOAD (no
 // TMA load: the producer arrives on each slot), DOTS_NO_MMA (no wgmma),
 // DOTS_NO_STORE (no output store), DOTS_NO_EPI12 / DOTS_NO_EPI3 /
-// DOTS_NO_EPI (no y1 and y2 epilogues / no conv3 epilogue / neither);
-// DOTS_CLUSTER=c sets the cluster size of both kernels (1: no multicast).
+// DOTS_NO_EPI (no y1 and y2 epilogues / no conv3 epilogue / neither).
+// Design switches, timed the same way: DOTS_CLUSTER=c sets the cluster size
+// of both kernels (1: no multicast); DOTS_K2=k, W2's 64-deep K chunks a
+// conv2 stage (3); DOTS_LSU_STORE, the output by 16-byte stores instead of
+// TMA stores; DOTS_L2_N3 (layer2_dots.cu), the layer2 dots' conv3 pass.
 #ifdef DOTS_NO_MMA
 constexpr bool kMma = false;
 #else
@@ -118,13 +121,14 @@ constexpr bool kEpi3 = false;      // no conv3 epilogue
 constexpr bool kEpi3 = true;
 #endif
 
-#ifndef DOTS_REG_CONSUMER
-#define DOTS_REG_CONSUMER 232
-#define DOTS_REG_PRODUCER 40
+// DOTS_PRODUCER_REGS: the producer warpgroup's registers a thread (56);
+// the consumers take the rest of the CTA's 384 x 168.
+#ifndef DOTS_PRODUCER_REGS
+#define DOTS_PRODUCER_REGS 56
 #endif
+constexpr int kProducerRegs = DOTS_PRODUCER_REGS;
+constexpr int kConsumerRegs = (384 * 168 - 128 * kProducerRegs) / 256 / 8 * 8;
 
-// Tuning switch (bench/dots_variants.py sweeps it): DOTS_K2, W2's 64-deep
-// K chunks a conv2 stage.
 #ifndef DOTS_K2
 #define DOTS_K2 3
 #endif
@@ -192,6 +196,7 @@ struct Shape {
   static constexpr int kSmemBytes = kFixed + kStages * kSlot + 2 * kStages * 8;
   static constexpr int kTiles = (P + kM - 1) / kM;
   static_assert(kM % G == 0 && (W == 64 || W == 128) && OUT % N3 == 0 &&
+                    kM1 <= 64 * 4 &&
                     (N3 == 128 || N3 == 256) && kC2 % kK2 == 0 &&
                     kSlot % 1024 == 0 && W / C >= 8 &&
                     N3 / C >= 8 && kStages >= 2 && kSmemBytes <= kSmemMax,
@@ -248,14 +253,12 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
     if (done) return;
-#ifndef DOTS_NO_WATCHDOG
     if ((++spins & 1023) == 1) {
       if (!t0)
         t0 = clock64();
       else if (clock64() - t0 > (1LL << 35))
         __trap();
     }
-#endif
   }
 }
 
@@ -332,9 +335,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
   if (tid >= kConsumers) {
     // ---- producer warpgroup: its first warp issues every load by TMA;
     // its registers go to the consumers ----
-#ifndef DOTS_NO_SETMAXNREG
-    setmaxnreg_dec<DOTS_REG_PRODUCER>();
-#endif
+    setmaxnreg_dec<kProducerRegs>();
     if (tid >= kConsumers + 32) {
       if constexpr (C > 1) cluster_sync();
       return;
@@ -366,43 +367,57 @@ dots_block_kernel(const __grid_constant__ Params p) {
       }
 #endif
     };
-    // source positions [f, f + nq) of frame n, channels [c0, c0 + 64), in
-    // boxes issued by the 32 lanes; an unwrapped source takes the box as
-    // it falls (TMA zero-fills rows outside [0, P)); a wrapped one is all
-    // zeros outside [0, P)
-    auto source = [&](unsigned char* dst, int n, int f, int nq, int c0) {
-#ifndef DOTS_NO_LOAD
-      // the 32 lanes issue the boxes of box rows together; under a
-      // wrapped source with short segments (the layer2 plane's 28-pixel
-      // rows), a segment that lies whole in the window and the frame comes
-      // as one box of xs from its first row's lane, its other rows' lanes
-      // issue nothing
-      for (int b = lane; b < nq / p.box; b += 32) {
-        const int fb = f + b * p.box;
-        int c1 = fb, c2 = 0;
-        const CUtensorMap* map = &p.x;
-        if (p.wrap < P) {
+    // The boxes of a window of source positions [f, f + nq) of a frame,
+    // planned once a tile (the row arithmetic divides by the runtime wrap
+    // and segment) and issued for every 64-channel chunk: lane l takes the
+    // boxes of units l and l + 32 of box rows. An unwrapped source takes a
+    // box as it falls (TMA zero-fills rows outside [0, P)); a wrapped one
+    // is all zeros outside [0, P), and with short segments (the layer2
+    // plane's 28-pixel rows) a segment that lies whole in the window and
+    // the frame comes as one box of xs from its first unit's lane.
+    struct Boxes {
+      int c1[2], c2[2], kind[2];   // kind 0: none, 1: a box of x, 2: of xs
+    };
+    auto boxes_of = [&](int f, int nq) {
+      Boxes bx;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = lane + 32 * i, fb = f + b * p.box;
+        int c1 = fb, c2 = 0, kind = b < nq / p.box;
+        if (kind && p.wrap < P) {
           const int fw = fb % p.wrap;
           const bool in = fb >= 0 && fb < P;
           c1 = in ? fw % p.seg : -p.box;
           c2 = in ? fw / p.seg : 0;
           const int s0 = fb - c1;                 // the segment's first row
           if (p.seg_box && in && s0 >= f && s0 + p.seg <= f + nq &&
-              s0 + p.seg <= P) {
-            if (c1) continue;
-            map = &p.xs;
-          }
+              s0 + p.seg <= P)
+            kind = c1 ? 0 : 2;
         }
-        tma_load_4d(dst + b * p.box * 128, map, &full[r.slot], c0, c1, c2,
-                    n);
+        bx.c1[i] = c1;
+        bx.c2[i] = c2;
+        bx.kind[i] = kind;
       }
+      return bx;
+    };
+    // channels [c0, c0 + 64) of a planned window of frame n
+    auto source = [&](unsigned char* dst, int n, const Boxes& bx, int c0) {
+#ifndef DOTS_NO_LOAD
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (bx.kind[i])
+          tma_load_4d(dst + (lane + 32 * i) * p.box * 128,
+                      bx.kind[i] == 2 ? &p.xs : &p.x, &full[r.slot], c0,
+                      bx.c1[i], bx.c2[i], n);
 #endif
     };
     for (int g = cluster; g < groups; g += clusters) {
       const Tile tl(g * C + rank, p.tiles, S::kTiles);
+      const Boxes window = boxes_of(tl.tile0 - G, S::kM1);   // conv1's rows
+      const Boxes center = boxes_of(tl.tile0, kM);       // the projection's
       for (int kc = 0; kc < p.kc1; ++kc) {
         unsigned char* s = stage(S::kX1 + S::kW12);
-        source(s, tl.n, tl.tile0 - G, S::kM1, 64 * kc);
+        source(s, tl.n, window, 64 * kc);
         weights(s + S::kX1, &p.w1, 64 * kc, 0, W);
         r.next();
       }
@@ -420,7 +435,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
         if (p.proj)
           for (int kc = 0; kc < p.kc1; ++kc) {
             unsigned char* s = stage(S::kXP + S::kW3);
-            source(s, tl.n, tl.tile0, kM, 64 * kc);
+            source(s, tl.n, center, 64 * kc);
             weights(s + S::kXP, &p.wd, 64 * kc, N3 * nc, N3);
             r.next();
           }
@@ -431,9 +446,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
     if constexpr (C > 1) cluster_sync();
   } else {
     // ---- consumers: warpgroup wg owns output positions [64 wg, 64 wg + 64)
-#ifndef DOTS_NO_SETMAXNREG
-    setmaxnreg_inc<DOTS_REG_CONSUMER>();
-#endif
+    setmaxnreg_inc<kConsumerRegs>();
     // the thread's indices, re-derived every tile with the addresses
     int wg = tid / 128, t = tid % 128, fr = 0, fc = 0, o0 = 0;
     // re-derived every phase from an opaque thread index, so that no
@@ -491,11 +504,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
     for (int g = cluster; g < groups; g += clusters) {
       const Tile tl(g * C + rank, p.tiles, S::kTiles);
       const int f0 = tl.tile0 - G;                   // first y1 position
-      // a warpgroup whose 64 positions all lie past the grid (the second
-      // half of the layer2 dots' last tile a frame) skips conv2 and conv3
-      bool live = true;
       refresh();
-      live = tl.tile0 + o0 < P;
 
       // identity residual (layer1_dots' blocks 1-2), taken during conv1
       uint32_t res[S::kIdentity ? OUT / 4 : 1];
@@ -544,16 +553,19 @@ dots_block_kernel(const __grid_constant__ Params p) {
           }
           end();
         };
+        // each path drains its own products: paths that joined with a
+        // wgmma in flight made ptxas serialize every wgmma of the kernel
         if (S::kIdentity && !p.proj) {
 #pragma unroll
           for (int kc = 0; kc < OUT / 64; ++kc) stage1(kc, true);
+          drain();
         } else {
           for (int kc = 0; kc < p.kc1; ++kc) stage1(kc, false);
+          drain();
         }
         float2 bb[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) bb[j] = bias2(cb + 8 * j + fc);
-        drain();
         bar_sync(1, kConsumers);   // both warpgroups are done with y2
 #pragma unroll
         for (int mt = 0; mt < (kEpi12 ? kMT : 0); ++mt)
@@ -575,9 +587,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
 
       // conv2: for each dy, three K blocks of W channels, all on y1
       // shifted by dy grid rows
-#ifndef DOTS_TILE_REFRESH
       refresh();
-#endif
       {
         float acc[W / 2];
         zero(acc, W / 2);
@@ -592,7 +602,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
                 y_a + 8 * h * S::kYLbo + (o0 + (t9 / 3) * G) * 16;
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              if (kMma && live)
+              if (kMma)
                 wgmma_n<W>(acc,
                            desc_interleave(a + 2 * k * S::kYLbo, S::kYLbo),
                            desc_sw128(b + i * S::kW12 + 32 * k), c | k);
@@ -618,9 +628,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
       // conv3 (+ projection), N3 output channels a pass
 #pragma unroll
       for (int nc = 0; nc < OUT / N3; ++nc) {
-#ifndef DOTS_TILE_REFRESH
         refresh();
-#endif
         float acc[N3 / 2];
         zero(acc, N3 / 2);
         const int stages = W / 64 + (p.proj ? p.kc1 : 0);
@@ -635,8 +643,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
                                  S::kYLbo)
                            : desc_sw128(x + o0 * 128 + 32 * k);
             const uint32_t b = s < W / 64 ? x : x + S::kXP;
-            if (kMma && live)
-              wgmma_n<N3>(acc, da, desc_sw128(b + 32 * k), s | k);
+            if (kMma) wgmma_n<N3>(acc, da, desc_sw128(b + 32 * k), s | k);
           }
         };
         products(0, begin());
