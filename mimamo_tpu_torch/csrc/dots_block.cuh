@@ -27,58 +27,75 @@
 // others the whole P x OUT state.
 //
 // What bounds it on the H100. Operations: the products the output needs
-// (see the wrappers: 0.471 ms for layer1_dots, 1.286 ms for the layer2
-// dots at 384 frames). layer1_dots also has a byte floor a one-launch-a-
-// block chain cannot pass: its three launches write and re-read the
-// [N, 3712, 256] state, about 3.7 GB at 384 frames, 1.10 ms at 3.35 TB/s.
+// (the wrappers' needed_work: 0.471 ms for layer1_dots, 1.286 ms for the
+// layer2 dots at 384 frames at 989 TFLOP/s). A chain of one launch a block
+// also has a byte floor: every launch but the last writes the state the
+// next one reads, 3.69 GB at 384 frames for layer1_dots (1.10 ms at 3.35
+// TB/s), 2.88 GB for the layer2 dots (0.86 ms).
 //
-// What held the first version (PR 9) back, from cut-down variants timed
-// by bench/dots_variants.py (384 frames, H100 SXM at 700 W): every
-// 128-position CTA streamed the block's whole weights and, for the
-// projection, its source once per 128 output channels from L2 (about 1.8
-// MB a tile of the layer2 dots, 104 FLOP a byte): the layer2 dots ran 5.54
-// ms, 3.10 without loads and 4.39 without products, so the loads were not
-// hidden. layer1_dots ran 3.44 ms, 3.28 without loads and 2.17 with
-// neither loads nor products: a non-persistent CTA a tile, whose phases
-// (prologue, drains, the residual's global loads, the stores) ran one after
-// the other, with the tensor cores idle between them.
+// What held the first version back (bench/dots_variants.py, cut-down
+// variants at 384 frames on an H100 SXM at 700 W): a CTA a tile, not
+// persistent, whose phases ran one after another. The layer2 dots took
+// 5.54 ms, 3.10 without loads and 4.39 without products: every CTA
+// streamed about 1.8 MB from L2 (the block's weights, the projection's
+// source once per 128 output channels) and the loads were not hidden.
+// layer1_dots took 3.44 ms, 2.17 with neither loads nor products: the
+// prologue, the drains, the residual's global loads and the stores.
 //
-// Design.
-// - Clusters of C CTAs (template parameter; 4 here) on C neighbouring
-//   tiles. Every weight chunk is cut into C slices of rows; CTA r loads
-//   slice r by a TMA multicast into the same ring slot of all C CTAs, so
-//   L2 serves each weight byte once a cluster. A slot is free again once
-//   the 8 consumer warps of every CTA of the cluster have arrived on its
-//   `empty` barrier in each CTA (remote mbarrier arrives); each CTA's
-//   producer expects the whole slot's bytes on its own `full` barrier.
-// - A persistent grid: as many clusters as fit on the card at once (one
-//   CTA an SM), each walking groups of C tiles, g = cluster, cluster +
-//   clusters, ... A group past the last tile is a ghost: its CTA computes
-//   the last tile again and stores nothing, so the cluster's CTAs walk
-//   the same load sequence. The producer warp runs ahead into the next
-//   tile's conv1 chunks while the consumers finish a tile's epilogue, and
-//   the prologue (barriers, cluster sync) is paid once a CTA.
-// - conv3 and the projection take N3 output channels a pass (256 in the
-//   layer2 dots, m64n256 wgmma: the projection's source is read twice a
-//   tile, not four times); the identity residual (layer1_dots' blocks 1-2)
-//   comes by TMA with conv3's weights, ahead of the epilogue, not by
-//   global loads after the products.
-// - Slots of 48 KB whose layout follows the stage: conv1 (source rows
-//   [0, kM + 2G) x 64 channels, then W1's chunk), conv2 (W2's chunk),
-//   conv3 (W3's chunk, then the residual), projection (source rows
-//   [G, G + kM), then Wd's chunk).
-// Kept from PR 9: a CTA owns 128 output positions (two wgmma m64 tiles,
-// one per consumer warpgroup) of one frame and computes y1 on them and on
-// one grid row above and below. The source is a 4-D tensor map [N,
-// segments, seg, cin] read in boxes of R rows, R the largest of 64, 32,
-// ... that divides G and, for a wrapped source, seg, wrap and P, so that no
-// box crosses a segment, the wrap or the grid's end; a box's rows land
-// where a single box would put them, in the 128-byte swizzle, which TMA
-// applies by shared-memory address. y1 is kept without swizzle (8-row x
+// Design (each point timed against its variant by the same script; now
+// 1.9 and 3.2 ms):
+// - A persistent grid: one CTA an SM walks its tiles. The producer warp
+//   runs ahead into the next tile's loads while the consumers finish a
+//   tile's epilogue; barriers and biases are set up once a CTA. A tile's
+//   source boxes are planned once (the row map divides by the runtime wrap
+//   and segment) and issued for every 64-channel chunk: planned per chunk,
+//   the producer's arithmetic held every layer2 dots block back.
+// - Clusters of C CTAs on neighbouring tiles, C = 2 in layer1_dots and 1
+//   in the layer2 dots. Each weight chunk is cut into C row slices; CTA r
+//   loads slice r by a TMA multicast into the same ring slot of every CTA
+//   of the cluster, whose producers each expect the whole slot on their
+//   own `full` barrier. A slot is free again once the 8 consumer warps of
+//   every CTA have arrived on its `empty` barrier in each CTA (remote
+//   arrives). Multicast did not pay here: clusters of 4 are 8-12% slower in
+//   both kernels, clusters of 2 even in layer1_dots and up to 4% slower in
+//   the layer2 dots. A cluster's CTAs wait for the slowest of them at every
+//   stage of a ring of 3 or 4 slots, and what bounds the loads is what one
+//   SM takes in, not what L2 serves.
+// - The output leaves by TMA stores of each staged 64 x 64 tile (the whole
+//   state, or a crop whose 64-position grid rows start at its column 0);
+//   the warpgroup goes on while the copy engine writes (16-byte stores from
+//   every thread: +15% in layer1_dots). Other crops: 16-byte stores.
+// - layer1_dots' identity residual is read into registers from conv1's
+//   source chunks (their rows G .. G + 127), so conv3 loads only weights.
+// - conv3 and the projection take N3 channels a pass: 256 in the layer2
+//   dots (m64n256 wgmma; the projection's source is read twice a tile, not
+//   four times: 128 costs 27%).
+// - conv2 takes 3 of W2's 64-deep K chunks a stage (one: +9%); a ring slot
+//   holds the largest stage and the ring as many slots as shared memory
+//   allows (4 in layer1_dots, 3 in the layer2 dots).
+// - The layer2 plane's whole 28-pixel segments come as one box each.
+// - What kept ptxas from a good schedule: the biases live in shared memory
+//   and pointers into it keep its address space (through an integer they
+//   became generic loads and stores); every accumulator starts zeroed and
+//   the thread index is re-derived each phase, or values stay live around
+//   the persistent loop (spills, serialized wgmma); the two conv1 paths
+//   each drain before they join (joined with a wgmma in flight, every wgmma
+//   of the kernel was serialized); the producer warpgroup hands registers
+//   to the consumers (setmaxnreg).
+// What holds it now: the epilogues. Without them (no y1, y2 or output
+// work) the kernels take 1.03 and 1.75 ms: the tensor cores wait while a
+// tile's y1, y2 and outputs are written.
+//
+// Kept from the first version: a CTA owns 128 output positions (two wgmma
+// m64 tiles, one per consumer warpgroup) of one frame and computes y1 on
+// them and on one grid row above and below. The source is a 4-D tensor map
+// [N, segments, seg, cin] read in boxes of R rows, R the largest of 64,
+// 32, ... that divides G and, for a wrapped source, seg, wrap and P, so
+// that no box crosses a segment, the wrap or the grid's end; a box's rows
+// land where a single box would put them, in the 128-byte swizzle, which
+// TMA applies by shared-memory address. y1 is kept without swizzle (8-row x
 // 16-byte core matrices), so a dy tap is a step of the descriptor; y2
-// overwrites y1; the epilogue stages 128 channels at a time in shared
-// memory (16-byte chunks XOR-swizzled by row) and writes them with 16-byte
-// stores.
+// overwrites y1.
 #pragma once
 
 #include <cuda.h>
@@ -94,8 +111,8 @@ using namespace hopper;
 
 // Cut-down variants for timing (bench/dots_variants.py): DOTS_NO_LOAD (no
 // TMA load: the producer arrives on each slot), DOTS_NO_MMA (no wgmma),
-// DOTS_NO_STORE (no output store), DOTS_NO_EPI12 / DOTS_NO_EPI3 /
-// DOTS_NO_EPI (no y1 and y2 epilogues / no conv3 epilogue / neither).
+// DOTS_NO_STORE (no output store), DOTS_NO_EPI (no y1, y2 or output
+// work).
 // Design switches, timed the same way: DOTS_CLUSTER=c sets the cluster size
 // of both kernels (1: no multicast); DOTS_K2=k, W2's 64-deep K chunks a
 // conv2 stage (3); DOTS_LSU_STORE, the output by 16-byte stores instead of
@@ -110,23 +127,15 @@ constexpr bool kStore = false;
 #else
 constexpr bool kStore = true;
 #endif
-#if defined(DOTS_NO_EPI) || defined(DOTS_NO_EPI12)
-constexpr bool kEpi12 = false;     // no y1 / y2 epilogue
+#ifdef DOTS_NO_EPI
+constexpr bool kEpi = false;       // no y1, y2 or output work
 #else
-constexpr bool kEpi12 = true;
-#endif
-#if defined(DOTS_NO_EPI) || defined(DOTS_NO_EPI3)
-constexpr bool kEpi3 = false;      // no conv3 epilogue
-#else
-constexpr bool kEpi3 = true;
+constexpr bool kEpi = true;
 #endif
 
-// DOTS_PRODUCER_REGS: the producer warpgroup's registers a thread (56);
-// the consumers take the rest of the CTA's 384 x 168.
-#ifndef DOTS_PRODUCER_REGS
-#define DOTS_PRODUCER_REGS 56
-#endif
-constexpr int kProducerRegs = DOTS_PRODUCER_REGS;
+// The producer warpgroup's registers a thread; the consumers take the
+// rest of the CTA's 384 x 168 (56 and 40 timed the same; 40 spilled).
+constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = (384 * 168 - 128 * kProducerRegs) / 256 / 8 * 8;
 
 #ifndef DOTS_K2
@@ -161,10 +170,10 @@ struct Params {
   int crop_h, crop_w, crop_r0, crop_c0;  // crop_h == 0: whole state out
 };
 
-// G: grid row stride; W: bottleneck width; OUT: output channels; P: grid
-// positions a frame; N3: output channels a conv3 pass; C: CTAs a cluster.
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
+// G: grid row stride; W: bottleneck width; OUT: output channels; P: grid
+// positions a frame; N3: output channels a conv3 pass; C: CTAs a cluster.
 template <int G, int W, int OUT, int P, int N3, int C>
 struct Shape {
   static constexpr int kM1 = kM + 2 * G;            // y1 rows
@@ -184,10 +193,10 @@ struct Shape {
   static constexpr int kYLbo = kM1 * 16;            // bytes between 8-ch groups
   static constexpr int kYBytes = (W / 8) * kYLbo;
   static constexpr int kBias = 2 * W + OUT;         // b1 | b2 | b3 (+ bd)
-  // conv3's epilogue: kSC channels a round, staged in a warpgroup's tile
-  // (64 rows x kSC, 16-byte chunks XOR-swizzled by row)
+  // conv3's epilogue: 64 channels a round, staged in a warpgroup's tile
+  // of 64 rows x 128 bytes (the TMA store's 128-byte swizzle)
   static constexpr int kSC = 64;
-  static constexpr int kStg = 64 * kSC * 2;
+  static constexpr int kStg = 64 * 128;
   static constexpr int kFixed = 1024 + kYBytes + 2 * kStg + 4 * kBias;
   // as many slots as shared memory holds, at most 6
   static constexpr int kStages =
@@ -195,6 +204,7 @@ struct Shape {
           ? (kSmemMax - kFixed - 6 * 16) / kSlot : 6;
   static constexpr int kSmemBytes = kFixed + kStages * kSlot + 2 * kStages * 8;
   static constexpr int kTiles = (P + kM - 1) / kM;
+  // (kM1 <= 256: at most 64 source boxes of 4 rows a window, two a lane)
   static_assert(kM % G == 0 && (W == 64 || W == 128) && OUT % N3 == 0 &&
                     kM1 <= 64 * 4 &&
                     (N3 == 128 || N3 == 256) && kC2 % kK2 == 0 &&
@@ -203,12 +213,11 @@ struct Shape {
                 "");
 };
 
-// chunk `c` of staging row `row`, XOR-swizzled so that the rows a warp
-// writes or reads together fall on distinct banks
-template <int kSC>
+// 16-byte chunk `c` of staging row `row` (128 bytes a row), XOR-swizzled
+// as TMA's 128-byte swizzle is: the rows a warp writes or reads together
+// fall on distinct banks
 __device__ __forceinline__ int stg_at(int row, int c) {
-  static_assert(kSC == 64, "8 chunks a row");
-  return row * kSC * 2 + ((c ^ (row & 7)) * 16);
+  return row * 128 + ((c ^ (row & 7)) * 16);
 }
 
 template <int kStages>
@@ -270,6 +279,7 @@ __device__ __forceinline__ uint32_t opaque(uint32_t v) {
   asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
   return r;
 }
+
 __device__ __forceinline__ void zero(float* a, int n) {
 #pragma unroll
   for (int i = 0; i < n; ++i) a[i] = 0.f;
@@ -447,15 +457,13 @@ dots_block_kernel(const __grid_constant__ Params p) {
   } else {
     // ---- consumers: warpgroup wg owns output positions [64 wg, 64 wg + 64)
     setmaxnreg_inc<kConsumerRegs>();
-    // the thread's indices, re-derived every tile with the addresses
+    // The thread's indices and the addresses made from them, re-derived
+    // at the start of every phase from an opaque thread index: hoisted out
+    // of the persistent loop and kept live across phases, they spilled.
     int wg = tid / 128, t = tid % 128, fr = 0, fc = 0, o0 = 0;
-    // re-derived every phase from an opaque thread index, so that no
-    // address is hoisted
     unsigned char* yb = ybuf;
     unsigned char* my_stg = stg;   // the warpgroup's staging tile
     uint32_t y_a = 0;
-    // at the start of every phase: values kept live across phases (and
-    // tiles) spilled
     auto refresh = [&]() {
       const int tt = static_cast<int>(opaque(static_cast<uint32_t>(tid)));
       wg = tt >> 7;
@@ -517,10 +525,9 @@ dots_block_kernel(const __grid_constant__ Params p) {
         static_assert(kMT * 64 * (W == 64 ? 2 : 1) == S::kM1, "");
         const int mt0 = W == 64 ? 2 * wg : 0;
         const int cb = W == 64 ? 0 : 64 * wg;
-        // every accumulator starts defined (the first product overwrites
-        // it): left undefined, its last value is taken as live around the
-        // persistent loop, and the phases' accumulators could not share
-        // registers (wgmma serialized, spills)
+        // every accumulator starts zeroed: left undefined, its last value
+        // is taken as live around the persistent loop, and the phases'
+        // accumulators could not share registers (wgmma serialized, spills)
         float acc[kMT][32];
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) zero(acc[mt], 32);
@@ -568,7 +575,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
         for (int j = 0; j < 8; ++j) bb[j] = bias2(cb + 8 * j + fc);
         bar_sync(1, kConsumers);   // both warpgroups are done with y2
 #pragma unroll
-        for (int mt = 0; mt < (kEpi12 ? kMT : 0); ++mt)
+        for (int mt = 0; mt < (kEpi ? kMT : 0); ++mt)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int q = 64 * (mt0 + mt) + fr + 8 * hh;
@@ -615,7 +622,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
         drain();
         bar_sync(1, kConsumers);       // both warpgroups are done reading y1
 #pragma unroll
-        for (int hh = 0; hh < (kEpi12 ? 2 : 0); ++hh)
+        for (int hh = 0; hh < (kEpi ? 2 : 0); ++hh)
 #pragma unroll
           for (int j = 0; j < W / 8; ++j)
             *y_at(j, o0 + fr + 8 * hh) =
@@ -653,10 +660,10 @@ dots_block_kernel(const __grid_constant__ Params p) {
           end();
         }
         drain();
-        // kSC channels a round: staged, then 16-byte stores
+        // 64 channels a round: staged, then a TMA store or 16-byte stores
         constexpr int kCh = S::kSC / 8;            // 16-byte chunks a row
 #pragma unroll
-        for (int h2 = 0; h2 < (kEpi3 ? N3 / S::kSC : 0); ++h2) {
+        for (int h2 = 0; h2 < (kEpi ? N3 / S::kSC : 0); ++h2) {
           if (p.tma_out && t == 0) bulk_wait_read<0>();
           bar_sync(2 + wg, 128);     // the previous stores have read stg
 #pragma unroll
@@ -676,7 +683,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
               const float v1 =
                   fmaxf(acc[4 * jj + 2 * hh + 1] + bb.y + r1, 0.f);
               *reinterpret_cast<uint32_t*>(
-                  my_stg + stg_at<S::kSC>(fr + 8 * hh, j) + fc * 2) =
+                  my_stg + stg_at(fr + 8 * hh, j) + fc * 2) =
                   pack_bf16(v0, v1);
             }
           }
@@ -719,7 +726,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
               dst = static_cast<long long>(tl.n) * P + f;
             }
             const uint4 v =
-                *reinterpret_cast<const uint4*>(my_stg + stg_at<S::kSC>(row, c));
+                *reinterpret_cast<const uint4*>(my_stg + stg_at(row, c));
             if (kStore && !tl.ghost)
               *reinterpret_cast<uint4*>(p.out + dst * OUT + N3 * nc +
                                         S::kSC * h2 + 8 * c) = v;

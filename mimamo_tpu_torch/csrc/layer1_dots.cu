@@ -15,7 +15,17 @@
 // (0.471 ms at 384 frames at 989 TFLOP/s) against 135 MB in and 617 MB
 // out; the kernel executes the probe's 1.581 (0.614 ms): it also computes
 // grid columns 56..63, which never reach the output, and the products of
-// the repeated rows (layer1_dots_kernel.needed_work).
+// the repeated rows (layer1_dots_kernel.needed_work). Three launches write
+// and re-read the [N, 3712, 256] state: 3.69 GB at 384 frames, a floor of
+// 1.10 ms at 3.35 TB/s that no one-launch-a-block design passes.
+//
+// Design: dots_block.cuh's persistent kernel with N3 = 128 (two conv3
+// passes), clusters of 2 with the weights multicast (even with clusters
+// of 1 on the card; 4 are slower), a 4-slot ring of 40 KB, the identity
+// residual taken from conv1's source chunks, TMA stores (block 2's crop is
+// one 64-position grid row a warpgroup). On an H100 SXM at 700 W, 384
+// frames: 1.9 ms against 3.4 for the first version; without its epilogues
+// 1.0 ms (bench/dots_variants.py).
 #include "dots_block.cuh"
 
 namespace {

@@ -22,7 +22,17 @@
 // reach the output, and the products of the repeated plane positions
 // (layer2_dots_kernel.needed_work). Executed, that is 2.18x layer2's own
 // 1.90 GFLOP: the padded grid, K = 512 in block 0 and the projection in
-// every block.
+// every block. Its tiles of 128 positions run 1,024 a frame of 960.
+//
+// Design: dots_block.cuh's persistent kernel with N3 = 256 (m64n256
+// wgmma; the projection's source twice a tile), clusters of 1 (the
+// weights' multicast over 2 or 4 CTAs was 4-12% slower on the card), a
+// 3-slot ring of 48 KB, the plane's 28-pixel segments as one TMA box each,
+// TMA stores for blocks 0-2 (block 3's crop starts at grid column 1: 16-byte
+// stores). Every CTA still takes in about 1.5 MB a tile (the weights 1.06),
+// and the epilogues stall the tensor cores: on an H100 SXM at 700 W, 384
+// frames, 3.1-3.2 ms against 5.5 for the first version, 1.75 without the
+// epilogues (bench/dots_variants.py).
 #include "dots_block.cuh"
 
 #ifndef DOTS_L2_N3
