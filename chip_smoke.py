@@ -1897,9 +1897,9 @@ DOTS_CHECK_FRAMES = (1, 3, 5)  # and B x T: odd and ragged persistent grids
 
 def check_dots(name, kernel, plain, inputs, blocks) -> dict:
     """``kernel`` against ``plain`` on the card at the probe's 384 frames
-    and at N = 1, 3 and 5 (layer1's 29 tiles a frame leave a cluster of 4
-    partly empty; at 5 frames its 145 tiles outnumber the card's SMs, so a
-    persistent CTA takes a second tile and the last wave is ragged):
+    and at N = 1, 3 and 5 (a grid of fewer CTAs than SMs at 1 and 3; at 5
+    frames layer1's 145 tiles outnumber the card's SMs, so a persistent CTA
+    takes a second tile and the last wave is ragged):
     max-rel < BF16_REL_TOL, finite everywhere. Returns :func:`errors` at
     384 frames."""
     errs = {}
@@ -1954,8 +1954,10 @@ def check_probes(line: str):
         regs = [r for r in ptxas if f"ILi{mod.GRID_W}ELi{mod.WIDTH}E" in r[0]]
         print(json.dumps({f"{name}_build": {
             "registers_spill_stores_loads_serialized": [r[1:] for r in regs],
-            "cluster_ctas": {n: dots_block.launch_plan(mod.PLAN, n)
-                             for n in DOTS_CHECK_FRAMES + (B * T,)},
+            # no cluster dimension: every CTA is a cluster of its own
+            "cluster_size": 1,
+            "ctas": {n: dots_block.launch_plan(mod.PLAN, n)
+                     for n in DOTS_CHECK_FRAMES + (B * T,)},
             "card": line}}), flush=True)
     recs = []
     for name, mod, kernel, plain, inputs, blocks, cin, source, replaces in (

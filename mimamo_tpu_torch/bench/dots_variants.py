@@ -16,16 +16,16 @@ What a variant leaves out tells what holds the kernel back:
   and epilogues alone, on whatever shared memory holds;
 - ``no_mma``: no ``wgmma``: loads and epilogues alone;
 - ``no_store``: no output store; ``no_epi``: no epilogue work at all;
-- ``cluster1``, ``cluster2``: clusters of 1 (no multicast) or 2 CTAs;
 - ``name:-DX,-DY``: any other set of switches.
 
     python -m mimamo_tpu_torch.bench.dots_variants [--variants "full;no_mma"]
         [--frames 384] [--src DIR]
 
-``--src`` compiles the ``csrc`` of another checkout (the parent, to
-compare two revisions in one run). Prints one JSON line per variant and
-timing, with the card's name and power limit, and each kernel's ptxas
-report (registers, spills).
+``--src`` compiles the ``csrc`` of another checkout whose C entries take
+the same arguments. To compare two revisions in one run, run each
+checkout's own copy of this script in turns. Prints one JSON line per
+variant and timing, with the card's name and power limit, each kernel's
+ptxas report (registers, spills) and its persistent grid.
 """
 
 from __future__ import annotations
@@ -48,9 +48,7 @@ from mimamo_tpu_torch.kernels import layer2_dots_kernel as l2d
 
 VARIANTS = {"full": (), "no_load": ("-DDOTS_NO_LOAD",),
             "no_mma": ("-DDOTS_NO_MMA",), "no_store": ("-DDOTS_NO_STORE",),
-            "no_epi": ("-DDOTS_NO_EPI",),
-            "cluster1": ("-DDOTS_CLUSTER=1",),
-            "cluster2": ("-DDOTS_CLUSTER=2",)}
+            "no_epi": ("-DDOTS_NO_EPI",)}
 CHECK_FRAMES = (1, 3, 5)       # and --frames: the full variant's checks
 SOURCES = ("layer1_dots.cu", "layer2_dots.cu", "errors.cu")
 SEED = 0
@@ -82,8 +80,8 @@ ENTRIES = ("mimamo_layer1_dots_block", "mimamo_layer2_dots_block",
 def build(variants: dict, src: Path, out: Path) -> tuple:
     """Compile every variant (all ``nvcc`` processes at once) into one
     library, variant i's namespace and C entries renamed with ``_v<i>``
-    (a cluster launch from a second library loaded into the process was
-    refused). Returns (library path, {name: ptxas report})."""
+    so that they live side by side. Returns (library path, {name: ptxas
+    report})."""
     nvcc = _build._nvcc()
     out.mkdir(parents=True, exist_ok=True)
     jobs, objs = [], []
@@ -151,7 +149,7 @@ def block_ms(kernel, mod, x, blocks) -> list:
                           else (n, mod.P, out_w), dtype=x.dtype,
                           device=x.device)
         call = lambda s=src, r=rows[b], o=out, c=crop, k=blk: \
-            dots_block.launch(kernel, s, r, k, o, c)
+            dots_block.launch(kernel, s, r, k, o, mod.GRID_W, mod.P, c)
         call()
         times.append(time_ms(call))
         src = out
@@ -187,17 +185,14 @@ def main(argv=None) -> int:
     for i, name in enumerate(variants):
         grids = {}
         for probe in ("layer1", "layer2"):
-            fn = getattr(cdll, f"mimamo_{probe}_dots_plan_v{i}", None)
-            if fn is None:            # a source without a persistent grid
-                continue
-            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                           ctypes.POINTER(ctypes.c_int)]
-            cl, ctas = ctypes.c_int(), ctypes.c_int()
-            err = fn(args.frames, ctypes.byref(cl), ctypes.byref(ctas))
-            grids[probe] = (cl.value, ctas.value, err)
+            fn = getattr(cdll, f"mimamo_{probe}_dots_plan_v{i}")
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            ctas = ctypes.c_int()
+            err = fn(args.frames, ctypes.byref(ctas))
+            grids[probe] = (ctas.value, err)
         print(json.dumps({"variant": name, "flags": variants[name],
                           "ptxas": ptxas_report(logs[name]),
-                          "cluster_ctas_err": grids}), flush=True)
+                          "ctas_err": grids}), flush=True)
         if args.log_dir:
             args.log_dir.mkdir(parents=True, exist_ok=True)
             (args.log_dir / f"{name}.log").write_text(logs[name])
@@ -226,12 +221,12 @@ def main(argv=None) -> int:
             for probe, (_, mod, blocks, x, plain) in probes.items():
                 k = kernels[name][probe]
                 run = lambda: dots_block.run(k, x, blocks, mod.source_rows(),
-                                             mod.P, mod.CROP)
+                                             mod.GRID_W, mod.P, mod.CROP)
                 if turn == 0:
                     for m in CHECK_FRAMES + (n,):
                         xm = x[:m]
                         got = dots_block.run(k, xm, blocks, mod.source_rows(),
-                                             mod.P, mod.CROP)
+                                             mod.GRID_W, mod.P, mod.CROP)
                         rec[f"{probe}_max_rel_{m}"] = max_rel(
                             got, plain(xm, blocks))
                         rec[f"{probe}_finite_{m}"] = bool(

@@ -43,24 +43,23 @@
 // prologue, the drains, the residual's global loads and the stores.
 //
 // Design (each point timed against its variant by the same script; now
-// 1.9 and 3.2 ms):
-// - A persistent grid: one CTA an SM walks its tiles. The producer warp
-//   runs ahead into the next tile's loads while the consumers finish a
-//   tile's epilogue; barriers and biases are set up once a CTA. A tile's
-//   source boxes are planned once (the row map divides by the runtime wrap
-//   and segment) and issued for every 64-channel chunk: planned per chunk,
-//   the producer's arithmetic held every layer2 dots block back.
-// - Clusters of C CTAs on neighbouring tiles, C = 2 in layer1_dots and 1
-//   in the layer2 dots. Each weight chunk is cut into C row slices; CTA r
-//   loads slice r by a TMA multicast into the same ring slot of every CTA
-//   of the cluster, whose producers each expect the whole slot on their
-//   own `full` barrier. A slot is free again once the 8 consumer warps of
-//   every CTA have arrived on its `empty` barrier in each CTA (remote
-//   arrives). Multicast did not pay here: clusters of 4 are 8-12% slower in
-//   both kernels, clusters of 2 even in layer1_dots and up to 4% slower in
-//   the layer2 dots. A cluster's CTAs wait for the slowest of them at every
-//   stage of a ring of 3 or 4 slots, and what bounds the loads is what one
-//   SM takes in, not what L2 serves.
+// 1.9 and 3.1 ms):
+// - A persistent grid: one CTA an SM walks tiles blockIdx.x, + gridDim.x,
+//   ... The producer warp runs ahead into the next tile's loads while the
+//   consumers finish a tile's epilogue; barriers and biases are set up once
+//   a CTA.
+// - A tile's source boxes come from a table the host plans once per row
+//   map (kernels/dots_block.py, box_table: per tile of a frame, the boxes of
+//   conv1's window and of the projection's) and are issued for every
+//   64-channel chunk; planned per chunk on the device, the producer's
+//   arithmetic held every layer2 dots block back.
+// - No clusters. Clusters of 2 and 4 CTAs on neighbouring tiles, each
+//   loading a row slice of every weight chunk by TMA multicast into the
+//   whole cluster, were timed and dropped: 4 cost 8-12% in both kernels, 2
+//   up to 4% in the layer2 dots and, in layer1_dots, less than the spread
+//   between runs of one build. A cluster's CTAs wait for the slowest of them
+//   at every stage of a ring of 3 or 4 slots, and what bounds the loads is
+//   what one SM takes in, not what L2 serves.
 // - The output leaves by TMA stores of each staged 64 x 64 tile (the whole
 //   state, or a crop whose 64-position grid rows start at its column 0);
 //   the warpgroup goes on while the copy engine writes (16-byte stores from
@@ -113,10 +112,6 @@ using namespace hopper;
 // TMA load: the producer arrives on each slot), DOTS_NO_MMA (no wgmma),
 // DOTS_NO_STORE (no output store), DOTS_NO_EPI (no y1, y2 or output
 // work).
-// Design switches, timed the same way: DOTS_CLUSTER=c sets the cluster size
-// of both kernels (1: no multicast); DOTS_K2=k, W2's 64-deep K chunks a
-// conv2 stage (3); DOTS_LSU_STORE, the output by 16-byte stores instead of
-// TMA stores; DOTS_L2_N3 (layer2_dots.cu), the layer2 dots' conv3 pass.
 #ifdef DOTS_NO_MMA
 constexpr bool kMma = false;
 #else
@@ -138,16 +133,12 @@ constexpr bool kEpi = true;
 constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = (384 * 168 - 128 * kProducerRegs) / 256 / 8 * 8;
 
-#ifndef DOTS_K2
-#define DOTS_K2 3
-#endif
-
 constexpr int kConsumers = 256;
 constexpr int kConsumerWarps = kConsumers / 32;
 constexpr int kThreads = kConsumers + 128;   // + a producer warpgroup
 constexpr int kM = 128;                      // output positions a tile
 constexpr int kSmemMax = 232448;             // a block's shared memory
-constexpr int kK2 = DOTS_K2;
+constexpr int kK2 = 3;                       // W2's K chunks a conv2 stage
 
 struct Params {
   // the source in boxes of box rows (x) and of a whole segment (xs); the
@@ -155,6 +146,10 @@ struct Params {
   // whole state [N, P, OUT], or a crop whose rows are whole grid rows of 64
   // positions, [N, crop_h, crop_w, OUT])
   CUtensorMap x, xs, w1, w2, w3, wd, yo;
+  // the boxes of each tile of a frame (kernels/dots_block.py, box_table):
+  // [tiles][conv1's window, the projection's][64] of {row in segment,
+  // segment, kind (0: none, 1: a box of x, 2: a whole segment of xs), 0}
+  const int4* boxes;
   __nv_bfloat16* out;
   const float* b1;
   const float* b2;
@@ -162,7 +157,6 @@ struct Params {
   const float* bd;          // projection bias, or null
   int wrap, seg;
   int box;                  // source rows a TMA box
-  int seg_box;              // xs holds whole segments (a wrapped source)
   int tma_out;              // stores through yo: 1 the state, 2 a crop
   int kc1;                  // 64-channel K chunks of conv1 and the projection
   int proj;                 // projection (else identity residual)
@@ -173,8 +167,8 @@ struct Params {
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // G: grid row stride; W: bottleneck width; OUT: output channels; P: grid
-// positions a frame; N3: output channels a conv3 pass; C: CTAs a cluster.
-template <int G, int W, int OUT, int P, int N3, int C>
+// positions a frame; N3: output channels a conv3 pass.
+template <int G, int W, int OUT, int P, int N3>
 struct Shape {
   static constexpr int kM1 = kM + 2 * G;            // y1 rows
   static constexpr int kX1 = kM1 * 128;             // conv1 source chunk
@@ -208,8 +202,8 @@ struct Shape {
   static_assert(kM % G == 0 && (W == 64 || W == 128) && OUT % N3 == 0 &&
                     kM1 <= 64 * 4 &&
                     (N3 == 128 || N3 == 256) && kC2 % kK2 == 0 &&
-                    kSlot % 1024 == 0 && W / C >= 8 &&
-                    N3 / C >= 8 && kStages >= 2 && kSmemBytes <= kSmemMax,
+                    kSlot % 1024 == 0 && kStages >= 2 &&
+                    kSmemBytes <= kSmemMax,
                 "");
 };
 
@@ -232,17 +226,12 @@ struct Ring {
   }
 };
 
-// A CTA's tile (tile index `tile` of N x tiles_per_frame): past the last
-// tile, a ghost that computes the last tile again and stores nothing.
+// Tile `tile` of N x per_frame: frame n, tile `index` of the frame, whose
+// first output position is tile0.
 struct Tile {
-  int n, tile0;
-  bool ghost;
-  __device__ Tile(int tile, int tiles, int per_frame) {
-    ghost = tile >= tiles;
-    const int u = ghost ? tiles - 1 : tile;
-    n = u / per_frame;
-    tile0 = (u % per_frame) * kM;
-  }
+  int n, index, tile0;
+  __device__ Tile(int tile, int per_frame)
+      : n(tile / per_frame), index(tile % per_frame), tile0(index * kM) {}
 };
 
 // mbar_wait with a watchdog: a wait of more than 2^35 cycles (over 15 s)
@@ -301,10 +290,10 @@ __device__ __forceinline__ void wgmma_n(float* d, uint64_t da, uint64_t db,
     wgmma_n256(d, da, db, scale_d);
 }
 
-template <int G, int W, int OUT, int P, int N3, int C>
+template <int G, int W, int OUT, int P, int N3>
 __global__ void __launch_bounds__(kThreads, 1)
 dots_block_kernel(const __grid_constant__ Params p) {
-  using S = Shape<G, W, OUT, P, N3, C>;
+  using S = Shape<G, W, OUT, P, N3>;
   extern __shared__ unsigned char smem_raw[];
   // aligned by pointer arithmetic, not through an integer: the compiler
   // then knows every pointer below is shared memory (LDS / STS; through an
@@ -318,14 +307,11 @@ dots_block_kernel(const __grid_constant__ Params p) {
   uint64_t* empty = full + S::kStages;
 
   const int tid = threadIdx.x, lane = tid % 32;
-  const uint32_t rank = C > 1 ? cluster_ctarank() : 0;
-  const int cluster = blockIdx.x / C, clusters = gridDim.x / C;
-  const int groups = (p.tiles + C - 1) / C;
 
   if (tid == 0) {
     for (int s = 0; s < S::kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps * C);
+      mbar_init(&empty[s], kConsumerWarps);
     }
     fence_mbar_init();
   }
@@ -337,19 +323,13 @@ dots_block_kernel(const __grid_constant__ Params p) {
               : i < 2 * W ? p.b2[i - W]
                           : p.b3[c] + (p.bd ? p.bd[c] : 0.f);
   }
-  if constexpr (C > 1)
-    cluster_sync();     // the peers' barriers exist before any multicast
-  else
-    __syncthreads();
+  __syncthreads();
 
   if (tid >= kConsumers) {
     // ---- producer warpgroup: its first warp issues every load by TMA;
     // its registers go to the consumers ----
     setmaxnreg_dec<kProducerRegs>();
-    if (tid >= kConsumers + 32) {
-      if constexpr (C > 1) cluster_sync();
-      return;
-    }
+    if (tid >= kConsumers + 32) return;
     Ring<S::kStages> r;
     // a slot of `bytes` (the producer's expect-tx), once it is free
     auto stage = [&](uint32_t bytes) -> unsigned char* {
@@ -362,52 +342,25 @@ dots_block_kernel(const __grid_constant__ Params p) {
       __syncwarp();
       return ring + r.slot * S::kSlot;
     };
-    // rows [row0, row0 + rows) x k [k, k + 64) of a weight: this CTA's
-    // slice of rows, multicast to the cluster
+    // a box of a weight: its map's box rows from row0, k [k, k + 64)
     auto weights = [&](unsigned char* dst, const CUtensorMap* map, int k,
-                       int row0, int rows) {
+                       int row0) {
 #ifndef DOTS_NO_LOAD
-      if (lane == 0) {
-        const int slice = rows / C;
-        if constexpr (C > 1)
-          tma_load_2d_multicast(dst + rank * slice * 128, map, &full[r.slot],
-                                k, row0 + rank * slice, (1u << C) - 1);
-        else
-          tma_load_2d(dst, map, &full[r.slot], k, row0);
-      }
+      if (lane == 0) tma_load_2d(dst, map, &full[r.slot], k, row0);
 #endif
     };
-    // The boxes of a window of source positions [f, f + nq) of a frame,
-    // planned once a tile (the row arithmetic divides by the runtime wrap
-    // and segment) and issued for every 64-channel chunk: lane l takes the
-    // boxes of units l and l + 32 of box rows. An unwrapped source takes a
-    // box as it falls (TMA zero-fills rows outside [0, P)); a wrapped one
-    // is all zeros outside [0, P), and with short segments (the layer2
-    // plane's 28-pixel rows) a segment that lies whole in the window and
-    // the frame comes as one box of xs from its first unit's lane.
+    // The boxes of window w (0: conv1's rows, 1: the projection's) of tile
+    // `index` of a frame, from the host's table, read once a tile and issued
+    // for every 64-channel chunk: lane l takes the boxes that start at box
+    // rows l and l + 32 of the window.
     struct Boxes {
-      int c1[2], c2[2], kind[2];   // kind 0: none, 1: a box of x, 2: of xs
+      int4 e[2];
     };
-    auto boxes_of = [&](int f, int nq) {
+    auto boxes_of = [&](int index, int w) {
       Boxes bx;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int b = lane + 32 * i, fb = f + b * p.box;
-        int c1 = fb, c2 = 0, kind = b < nq / p.box;
-        if (kind && p.wrap < P) {
-          const int fw = fb % p.wrap;
-          const bool in = fb >= 0 && fb < P;
-          c1 = in ? fw % p.seg : -p.box;
-          c2 = in ? fw / p.seg : 0;
-          const int s0 = fb - c1;                 // the segment's first row
-          if (p.seg_box && in && s0 >= f && s0 + p.seg <= f + nq &&
-              s0 + p.seg <= P)
-            kind = c1 ? 0 : 2;
-        }
-        bx.c1[i] = c1;
-        bx.c2[i] = c2;
-        bx.kind[i] = kind;
-      }
+      for (int i = 0; i < 2; ++i)
+        bx.e[i] = __ldg(p.boxes + (2 * index + w) * 64 + lane + 32 * i);
       return bx;
     };
     // channels [c0, c0 + 64) of a planned window of frame n
@@ -415,45 +368,42 @@ dots_block_kernel(const __grid_constant__ Params p) {
 #ifndef DOTS_NO_LOAD
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        if (bx.kind[i])
+        if (bx.e[i].z)
           tma_load_4d(dst + (lane + 32 * i) * p.box * 128,
-                      bx.kind[i] == 2 ? &p.xs : &p.x, &full[r.slot], c0,
-                      bx.c1[i], bx.c2[i], n);
+                      bx.e[i].z == 2 ? &p.xs : &p.x, &full[r.slot], c0,
+                      bx.e[i].x, bx.e[i].y, n);
 #endif
     };
-    for (int g = cluster; g < groups; g += clusters) {
-      const Tile tl(g * C + rank, p.tiles, S::kTiles);
-      const Boxes window = boxes_of(tl.tile0 - G, S::kM1);   // conv1's rows
-      const Boxes center = boxes_of(tl.tile0, kM);       // the projection's
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const Tile tl(tile, S::kTiles);
+      const Boxes window = boxes_of(tl.index, 0);   // conv1's rows
+      const Boxes center = boxes_of(tl.index, 1);   // the projection's
       for (int kc = 0; kc < p.kc1; ++kc) {
         unsigned char* s = stage(S::kX1 + S::kW12);
         source(s, tl.n, window, 64 * kc);
-        weights(s + S::kX1, &p.w1, 64 * kc, 0, W);
+        weights(s + S::kX1, &p.w1, 64 * kc, 0);
         r.next();
       }
       for (int c = 0; c < S::kC2; c += kK2) {  // kK2 K chunks of W2
         unsigned char* s = stage(kK2 * S::kW12);
         for (int i = 0; i < kK2; ++i)
-          weights(s + i * S::kW12, &p.w2, 64 * (c + i), 0, W);
+          weights(s + i * S::kW12, &p.w2, 64 * (c + i), 0);
         r.next();
       }
       for (int nc = 0; nc < OUT / N3; ++nc) {
         for (int kc = 0; kc < W / 64; ++kc) {
-          weights(stage(S::kW3), &p.w3, 64 * kc, N3 * nc, N3);
+          weights(stage(S::kW3), &p.w3, 64 * kc, N3 * nc);
           r.next();
         }
         if (p.proj)
           for (int kc = 0; kc < p.kc1; ++kc) {
             unsigned char* s = stage(S::kXP + S::kW3);
             source(s, tl.n, center, 64 * kc);
-            weights(s + S::kXP, &p.wd, 64 * kc, N3 * nc, N3);
+            weights(s + S::kXP, &p.wd, 64 * kc, N3 * nc);
             r.next();
           }
       }
     }
-    // no CTA leaves while a peer may still multicast into it or arrive on
-    // its barriers
-    if constexpr (C > 1) cluster_sync();
   } else {
     // ---- consumers: warpgroup wg owns output positions [64 wg, 64 wg + 64)
     setmaxnreg_inc<kConsumerRegs>();
@@ -478,10 +428,10 @@ dots_block_kernel(const __grid_constant__ Params p) {
     Ring<S::kStages> r;
     int prev = -1;
     // this warp's reads of a slot are done: one arrive on its empty
-    // barrier in each CTA of the cluster (lane c: CTA c)
+    // barrier
     auto release = [&](int slot) {
       __syncwarp();
-      mbar_arrive_cluster_if(&empty[slot], lane % C, lane < C);
+      mbar_arrive_if(&empty[slot], lane == 0);
     };
     auto begin = [&]() -> uint32_t {
       bar_wait(&full[r.slot], r.phase);
@@ -509,8 +459,8 @@ dots_block_kernel(const __grid_constant__ Params p) {
                                          fc * 2);
     };
 
-    for (int g = cluster; g < groups; g += clusters) {
-      const Tile tl(g * C + rank, p.tiles, S::kTiles);
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const Tile tl(tile, S::kTiles);
       const int f0 = tl.tile0 - G;                   // first y1 position
       refresh();
 
@@ -694,7 +644,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
             bar_sync(2 + wg, 128);
             const int ch = N3 * nc + S::kSC * h2;
             const int cr = (tl.tile0 + o0) / G - p.crop_r0;   // crop row
-            if (t == 0 && kStore && !tl.ghost) {
+            if (t == 0 && kStore) {
               if (p.tma_out == 1) {
                 tma_store_3d(&p.yo, my_stg, ch, tl.tile0 + o0, tl.n);
                 bulk_commit();
@@ -727,7 +677,7 @@ dots_block_kernel(const __grid_constant__ Params p) {
             }
             const uint4 v =
                 *reinterpret_cast<const uint4*>(my_stg + stg_at(row, c));
-            if (kStore && !tl.ghost)
+            if (kStore)
               *reinterpret_cast<uint4*>(p.out + dst * OUT + N3 * nc +
                                         S::kSC * h2 + 8 * c) = v;
           }
@@ -735,7 +685,6 @@ dots_block_kernel(const __grid_constant__ Params p) {
       }
     }
     if (t == 0) bulk_wait<0>();    // the last stores have left shared memory
-    if constexpr (C > 1) cluster_sync();
   }
 }
 
@@ -756,19 +705,13 @@ inline int encode_weight(CUtensorMap* map, const void* w, int rows, int k,
   return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
 }
 
-#ifdef DOTS_CLUSTER
-constexpr int cluster_size(int) { return DOTS_CLUSTER; }
-#else
-constexpr int cluster_size(int c) { return c; }
-#endif
-
-// The persistent grid of a launch on N frames: CTAs a cluster and CTAs in
-// all, C x min(groups of C tiles, clusters that fit on the card at once).
-template <int G, int W, int OUT, int P, int N3, int C>
-int plan(int N, int* cluster, int* ctas) {
-  using S = Shape<G, W, OUT, P, N3, C>;
-  auto kernel = dots_block_kernel<G, W, OUT, P, N3, C>;
-  static int fits[64] = {};                // clusters at once, per device
+// CTAs of the persistent grid on N frames: one a tile, at most as many as
+// the card holds at once.
+template <int G, int W, int OUT, int P, int N3>
+int plan(int N, int* ctas) {
+  using S = Shape<G, W, OUT, P, N3>;
+  auto kernel = dots_block_kernel<G, W, OUT, P, N3>;
+  static int fits[64] = {};                // CTAs at once, per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -778,26 +721,17 @@ int plan(int N, int* cluster, int* ctas) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              S::kSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(C);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = S::kSmemBytes;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int n = 0;
-    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, S::kSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    fits[dev] = n;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    fits[dev] = per_sm * sms;
   }
-  const int groups = (N * S::kTiles + C - 1) / C;
-  *cluster = C;
-  *ctas = C * (groups < fits[dev] ? groups : fits[dev]);
+  const int tiles = N * S::kTiles;
+  *ctas = tiles < fits[dev] ? tiles : fits[dev];
   return 0;
 }
 
@@ -805,25 +739,25 @@ int plan(int N, int* cluster, int* ctas) {
 // layer2_dots.cu forward their arguments here. Weights K-major bf16: w1
 // [W, cin], w2 [W, 9 W] (K = (3 dy + dx block) W + c_in), w3 [OUT, W], wd
 // [OUT, cin] or null (identity residual: then cin == OUT); biases fp32.
-template <int G, int W, int OUT, int P, int N3, int C>
+// `boxes` and `box`: the host's box table and the source rows a box
+// (kernels/dots_block.py: box_table, box_rows).
+template <int G, int W, int OUT, int P, int N3>
 int launch(const void* src, const void* w1, const void* w2, const void* w3,
            const void* wd, const void* b1, const void* b2, const void* b3,
-           const void* bd, void* out, int N, int cin, int wrap, int seg,
-           long long seg_stride, long long frame_stride, int crop_h,
-           int crop_w, int crop_r0, int crop_c0, void* stream) {
-  using S = Shape<G, W, OUT, P, N3, C>;
+           const void* bd, void* out, const void* boxes, int N, int cin,
+           int wrap, int seg, int box, long long seg_stride,
+           long long frame_stride, int crop_h, int crop_w, int crop_r0,
+           int crop_c0, void* stream) {
+  using S = Shape<G, W, OUT, P, N3>;
+  // a box is a power of two from 4 to 64 rows that divides G (the
+  // projection's rows start G rows in) and, for a wrapped source, wrap,
+  // seg and P: no box crosses a segment, the wrap or the grid's end
+  const bool wrapped = wrap < P;
   if (N < 1 || cin % 64 || cin < 64 || cin > 512 || wrap < 1 || seg < 1 ||
       (wd == nullptr && (cin != OUT || bd != nullptr || !S::kIdentity)) ||
-      crop_h < 0 || crop_w < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the box: the largest power of two up to 64 dividing G (the
-  // projection's rows start G rows in) and, for a wrapped source, wrap,
-  // seg and P
-  const bool wrapped = wrap < P;
-  int box = 64;
-  while (G % box || (wrapped && (wrap % box || seg % box || P % box)))
-    box /= 2;
-  if (box < 4 || (wrapped && wrap % seg))
+      crop_h < 0 || crop_w < 0 || boxes == nullptr || box < 4 || box > 64 ||
+      (box & (box - 1)) || G % box ||
+      (wrapped && (wrap % box || seg % box || P % box || wrap % seg)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   int err;
@@ -839,8 +773,7 @@ int launch(const void* src, const void* w1, const void* w2, const void* w3,
     const uint32_t elem[4] = {1, 1, 1, 1};
     // x in boxes of box rows; xs, for a wrapped source with segments of
     // at most 256 rows, in boxes of a whole segment
-    p.seg_box = wrapped && seg <= 256 && seg > box;
-    for (int m = 0; m < (p.seg_box ? 2 : 1); ++m) {
+    for (int m = 0; m < (wrapped && seg <= 256 ? 2 : 1); ++m) {
       const uint32_t boxdim[4] = {
           64, static_cast<uint32_t>(m ? seg : box), 1, 1};
       const CUresult res = cuTensorMapEncodeTiled(
@@ -853,7 +786,6 @@ int launch(const void* src, const void* w1, const void* w2, const void* w3,
     }
   }
   p.tma_out = 0;
-#ifndef DOTS_LSU_STORE
   if (crop_h && G == 64 && crop_c0 == 0 && crop_w <= 64) {
     // a crop of whole grid rows from column 0: a warpgroup's 64 positions
     // are one grid row, its columns past crop_w clipped
@@ -890,13 +822,12 @@ int launch(const void* src, const void* w1, const void* w2, const void* w3,
     if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
     p.tma_out = 1;
   }
-#endif
-  // each CTA of a cluster loads 1 / C of a chunk's rows
-  if ((err = encode_weight(&p.w1, w1, W, cin, W / C))) return err;
-  if ((err = encode_weight(&p.w2, w2, W, 9 * W, W / C))) return err;
-  if ((err = encode_weight(&p.w3, w3, OUT, W, N3 / C))) return err;
-  if ((err = encode_weight(&p.wd, wd ? wd : w3, OUT, wd ? cin : W, N3 / C)))
+  if ((err = encode_weight(&p.w1, w1, W, cin, W))) return err;
+  if ((err = encode_weight(&p.w2, w2, W, 9 * W, W))) return err;
+  if ((err = encode_weight(&p.w3, w3, OUT, W, N3))) return err;
+  if ((err = encode_weight(&p.wd, wd ? wd : w3, OUT, wd ? cin : W, N3)))
     return err;
+  p.boxes = static_cast<const int4*>(boxes);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.b1 = static_cast<const float*>(b1);
   p.b2 = static_cast<const float*>(b2);
@@ -912,23 +843,11 @@ int launch(const void* src, const void* w1, const void* w2, const void* w3,
   p.crop_w = crop_w;
   p.crop_r0 = crop_r0;
   p.crop_c0 = crop_c0;
-  int cluster = 0, ctas = 0;
-  if ((err = plan<G, W, OUT, P, N3, C>(N, &cluster, &ctas))) return err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = S::kSmemBytes;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e =
-      cudaLaunchKernelEx(&cfg, dots_block_kernel<G, W, OUT, P, N3, C>, p);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  int ctas = 0;
+  if ((err = plan<G, W, OUT, P, N3>(N, &ctas))) return err;
+  dots_block_kernel<G, W, OUT, P, N3>
+      <<<ctas, kThreads, S::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+          p);
   return static_cast<int>(cudaGetLastError());
 }
 

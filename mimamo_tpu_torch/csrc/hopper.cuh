@@ -134,56 +134,19 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// -- clusters (PR 15) ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every CTA of the cluster; orders shared-memory writes
-// before it (mbarrier inits included) before reads after it, cluster-wide.
-__device__ __forceinline__ void cluster_sync() {
+// Where `pred` holds, arrives on the mbarrier `bar`. Predicated, not
+// branched: a warp that calls it between wgmma instructions stays
+// converged.
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
   asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Where `pred` holds, arrives on the mbarrier at the same shared-memory
-// offset as `bar` in CTA `cta` of the cluster (this CTA included), with the
-// default release at CTA scope, as CUTLASS's ClusterBarrier does (release
-// at cluster scope made every arrive wait for the thread's earlier global
-// stores). Predicated, not branched: a warp that calls it between wgmma
-// instructions stays converged.
-__device__ __forceinline__ void mbar_arrive_cluster_if(uint64_t* bar,
-                                                       uint32_t cta,
-                                                       bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 ra;\n"
-      "setp.ne.b32 p, %2, 0;\n"
-      "@p mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "@p mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(cta), "r"(static_cast<uint32_t>(pred))
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(static_cast<uint32_t>(pred))
       : "memory");
 }
 
-// A 2-D TMA load multicast to the CTAs of `mask`: the box lands at the
-// same shared-memory offset as `dst` in each of them and completes its
-// bytes on the mbarrier at `bar`'s offset there.
-__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
-                                                      const CUtensorMap* map,
-                                                      uint64_t* bar, int c0,
-                                                      int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-      "h"(mask)
-      : "memory");
-}
+// -- register budgets ----------------------------------------------------------
 
 // Moves this warpgroup's register budget to N a thread (all its warps
 // together); the warpgroups of a CTA trade registers through a common pool.

@@ -20,30 +20,26 @@
 // 1.10 ms at 3.35 TB/s that no one-launch-a-block design passes.
 //
 // Design: dots_block.cuh's persistent kernel with N3 = 128 (two conv3
-// passes), clusters of 2 with the weights multicast (even with clusters
-// of 1 on the card; 4 are slower), a 4-slot ring of 40 KB, the identity
-// residual taken from conv1's source chunks, TMA stores (block 2's crop is
-// one 64-position grid row a warpgroup). On an H100 SXM at 700 W, 384
-// frames: 1.9 ms against 3.4 for the first version; without its epilogues
-// 1.0 ms (bench/dots_variants.py).
+// passes), a 4-slot ring of 40 KB, the identity residual taken from
+// conv1's source chunks, TMA stores (block 2's crop is one 64-position grid
+// row a warpgroup). Clusters of 2 with the weights multicast timed within
+// the spread between runs of one build, clusters of 4 slower: none. On an
+// H100 SXM at 700 W, 384 frames: 1.9 ms against 3.4 for the first version;
+// without its epilogues 1.0 ms (bench/dots_variants.py).
 #include "dots_block.cuh"
-
-namespace {
-constexpr int kCluster = dots::cluster_size(2);
-}
 
 extern "C" int mimamo_layer1_dots_block(
     const void* src, const void* w1, const void* w2, const void* w3,
     const void* wd, const void* b1, const void* b2, const void* b3,
-    const void* bd, void* out, int N, int cin, int wrap, int seg,
-    long long seg_stride, long long frame_stride, int crop_h, int crop_w,
-    int crop_r0, int crop_c0, void* stream) {
-  return dots::launch<64, 64, 256, 58 * 64, 128, kCluster>(
-      src, w1, w2, w3, wd, b1, b2, b3, bd, out, N, cin, wrap, seg, seg_stride,
-      frame_stride, crop_h, crop_w, crop_r0, crop_c0, stream);
+    const void* bd, void* out, const void* boxes, int N, int cin, int wrap,
+    int seg, int box, long long seg_stride, long long frame_stride,
+    int crop_h, int crop_w, int crop_r0, int crop_c0, void* stream) {
+  return dots::launch<64, 64, 256, 58 * 64, 128>(
+      src, w1, w2, w3, wd, b1, b2, b3, bd, out, boxes, N, cin, wrap, seg, box,
+      seg_stride, frame_stride, crop_h, crop_w, crop_r0, crop_c0, stream);
 }
 
-// The persistent grid a launch on N frames takes: CTAs a cluster, CTAs.
-extern "C" int mimamo_layer1_dots_plan(int N, int* cluster, int* ctas) {
-  return dots::plan<64, 64, 256, 58 * 64, 128, kCluster>(N, cluster, ctas);
+// CTAs of the persistent grid a launch on N frames takes.
+extern "C" int mimamo_layer1_dots_plan(int N, int* ctas) {
+  return dots::plan<64, 64, 256, 58 * 64, 128>(N, ctas);
 }

@@ -25,36 +25,28 @@
 // every block. Its tiles of 128 positions run 1,024 a frame of 960.
 //
 // Design: dots_block.cuh's persistent kernel with N3 = 256 (m64n256
-// wgmma; the projection's source twice a tile), clusters of 1 (the
-// weights' multicast over 2 or 4 CTAs was 4-12% slower on the card), a
-// 3-slot ring of 48 KB, the plane's 28-pixel segments as one TMA box each,
-// TMA stores for blocks 0-2 (block 3's crop starts at grid column 1: 16-byte
-// stores). Every CTA still takes in about 1.5 MB a tile (the weights 1.06),
-// and the epilogues stall the tensor cores: on an H100 SXM at 700 W, 384
-// frames, 3.1-3.2 ms against 5.5 for the first version, 1.75 without the
-// epilogues (bench/dots_variants.py).
+// wgmma; the projection's source twice a tile), no clusters (the weights'
+// multicast over 2 or 4 CTAs was 4-12% slower on the card), a 3-slot ring
+// of 48 KB, the plane's 28-pixel segments as one TMA box each, TMA stores
+// for blocks 0-2 (block 3's crop starts at grid column 1: 16-byte stores).
+// Every CTA still takes in about 1.5 MB a tile (the weights 1.06), and the
+// epilogues stall the tensor cores: on an H100 SXM at 700 W, 384 frames,
+// 3.1-3.2 ms against 5.5 for the first version, 1.75 without the epilogues
+// (bench/dots_variants.py).
 #include "dots_block.cuh"
-
-#ifndef DOTS_L2_N3
-#define DOTS_L2_N3 256
-#endif
-
-namespace {
-constexpr int kCluster = dots::cluster_size(1);
-}
 
 extern "C" int mimamo_layer2_dots_block(
     const void* src, const void* w1, const void* w2, const void* w3,
     const void* wd, const void* b1, const void* b2, const void* b3,
-    const void* bd, void* out, int N, int cin, int wrap, int seg,
-    long long seg_stride, long long frame_stride, int crop_h, int crop_w,
-    int crop_r0, int crop_c0, void* stream) {
-  return dots::launch<32, 128, 512, 30 * 32, DOTS_L2_N3, kCluster>(
-      src, w1, w2, w3, wd, b1, b2, b3, bd, out, N, cin, wrap, seg, seg_stride,
-      frame_stride, crop_h, crop_w, crop_r0, crop_c0, stream);
+    const void* bd, void* out, const void* boxes, int N, int cin, int wrap,
+    int seg, int box, long long seg_stride, long long frame_stride,
+    int crop_h, int crop_w, int crop_r0, int crop_c0, void* stream) {
+  return dots::launch<32, 128, 512, 30 * 32, 256>(
+      src, w1, w2, w3, wd, b1, b2, b3, bd, out, boxes, N, cin, wrap, seg, box,
+      seg_stride, frame_stride, crop_h, crop_w, crop_r0, crop_c0, stream);
 }
 
-// The persistent grid a launch on N frames takes: CTAs a cluster, CTAs.
-extern "C" int mimamo_layer2_dots_plan(int N, int* cluster, int* ctas) {
-  return dots::plan<32, 128, 512, 30 * 32, DOTS_L2_N3, kCluster>(N, cluster, ctas);
+// CTAs of the persistent grid a launch on N frames takes.
+extern "C" int mimamo_layer2_dots_plan(int N, int* ctas) {
+  return dots::plan<32, 128, 512, 30 * 32, 256>(N, ctas);
 }

@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,10 +27,12 @@ import torch.nn.functional as F
 
 from ._build import LL, I, P, Kernel, library
 
-# the C entry points' arguments: src, w1, w2, w3, wd, b1, b2, b3, bd, out;
-# N, cin, wrap, seg; seg_stride, frame_stride; the crop; the stream
-ARGTYPES = [P] * 10 + [I] * 4 + [LL] * 2 + [I] * 4 + [P]
+# the C entry points' arguments: src, w1, w2, w3, wd, b1, b2, b3, bd, out,
+# the box table; N, cin, wrap, seg, box rows; seg_stride, frame_stride; the
+# crop; the stream
+ARGTYPES = [P] * 11 + [I] * 5 + [LL] * 2 + [I] * 4 + [P]
 TILE_M = 128          # output positions a CTA's tile (the kernel's kM)
+MAX_BOXES = 64        # box table entries a window (the kernel's lanes x 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,21 +135,24 @@ def check_blocks(blocks: Tuple[DotsBlock, ...], device: torch.device,
 
 
 def launch(kernel: Kernel, src: torch.Tensor, rows: RowMap, blk: DotsBlock,
-           out: torch.Tensor, crop: Tuple[int, int, int, int] = (0, 0, 0, 0)
-           ) -> None:
+           out: torch.Tensor, grid_w: int, positions: int,
+           crop: Tuple[int, int, int, int] = (0, 0, 0, 0)) -> None:
     """One launch of ``kernel`` on the current stream: ``src`` read through
-    ``rows``, ``out`` the whole ``[N, P, OUT]`` state or, with ``crop`` =
-    (rows, columns, first grid row, first grid column), that crop."""
+    ``rows`` by the boxes of :func:`box_table`, ``out`` the whole ``[N, P,
+    OUT]`` state or, with ``crop`` = (rows, columns, first grid row, first
+    grid column), that crop."""
+    table = _table_on(src.device, rows, grid_w, positions)
     kernel(src.data_ptr(), blk.w1.data_ptr(), blk.w2.data_ptr(),
            blk.w3.data_ptr(), None if blk.wd is None else blk.wd.data_ptr(),
            blk.b1.data_ptr(), blk.b2.data_ptr(), blk.b3.data_ptr(),
            None if blk.bd is None else blk.bd.data_ptr(), out.data_ptr(),
-           src.shape[0], rows.cin, rows.wrap, rows.seg, rows.seg_stride,
-           rows.frame, *crop, torch.cuda.current_stream(src.device).cuda_stream)
+           table.data_ptr(), src.shape[0], rows.cin, rows.wrap, rows.seg,
+           box_rows(rows, grid_w, positions), rows.seg_stride, rows.frame,
+           *crop, torch.cuda.current_stream(src.device).cuda_stream)
 
 
 def run(kernel: Kernel, x: torch.Tensor, blocks: Sequence[DotsBlock],
-        rows: Sequence[RowMap], positions: int,
+        rows: Sequence[RowMap], grid_w: int, positions: int,
         crop: Tuple[int, int, int, int]) -> torch.Tensor:
     """``blocks`` through ``kernel``, one launch each: block 0 reads ``x``
     (bf16, contiguous, on a CUDA device) through ``rows[0]``, every block
@@ -164,7 +170,8 @@ def run(kernel: Kernel, x: torch.Tensor, blocks: Sequence[DotsBlock],
         out = torch.empty((n, *crop[:2], out_w) if last
                           else (n, positions, out_w),
                           dtype=x.dtype, device=x.device)
-        launch(kernel, src, r, blk, out, crop if last else (0, 0, 0, 0))
+        launch(kernel, src, r, blk, out, grid_w, positions,
+               crop if last else (0, 0, 0, 0))
         src = out
     return src
 
@@ -234,34 +241,14 @@ def needed_work(source: np.ndarray, grid_w: int,
     return flops, rows_needed
 
 
-# -- the kernel's plan, mirrored on the host (csrc/dots_block.cuh) ----------
-
-
-def schedule(n: int, tiles_per_frame: int, cluster: int, clusters: int
-             ) -> List[List[Optional[int]]]:
-    """The tiles each CTA of the persistent grid computes, in order (CTA
-    ``k * cluster + r`` at index ``k * cluster + r``): rank r of cluster k
-    takes tile ``g * cluster + r`` of every group g = k, k + clusters, ...
-    of ``ceil(tiles / cluster)`` groups of neighbouring tiles. Past the last
-    tile it is a ghost (None): it computes the last tile again and stores
-    nothing, so that the cluster's CTAs walk the same loads."""
-    tiles = n * tiles_per_frame
-    groups = -(-tiles // cluster)
-    return [[g * cluster + r if g * cluster + r < tiles else None
-             for g in range(k, groups, clusters)]
-            for k in range(clusters) for r in range(cluster)]
-
-
-def grid(n: int, tiles_per_frame: int, cluster: int, fits: int) -> int:
-    """Clusters of the persistent grid: one a group of tiles, at most the
-    ``fits`` that the card holds at once (the kernel's ``plan``)."""
-    return min(-(-n * tiles_per_frame // cluster), fits)
+# -- the kernel's source boxes, planned on the host ---------------------------
 
 
 def box_rows(rows: RowMap, grid_w: int, positions: int) -> int:
     """Source rows a TMA box: the largest power of two up to 64 that
     divides ``grid_w`` and, for a wrapped source, wrap, seg and the grid's
-    positions (the kernel's ``launch``)."""
+    positions, so that no box crosses a segment, the wrap or the grid's end
+    (the kernel's ``launch`` refuses any other)."""
     wrapped = rows.wrap < positions
     box = 64
     while grid_w % box or (wrapped and (rows.wrap % box or rows.seg % box
@@ -277,105 +264,72 @@ def segment_boxes(rows: RowMap, box: int, positions: int) -> bool:
     return rows.wrap < positions and rows.seg <= 256 and rows.seg > box
 
 
-def box_plan(rows: RowMap, box: int, positions: int, f: int, count: int
-             ) -> List[Tuple[int, int, int, int]]:
-    """The TMA boxes the kernel's producer issues for positions ``[f, f +
-    count)`` of a frame (``source`` in ``csrc/dots_block.cuh``): (first row
-    in the window, rows, row in segment ``c1``, segment ``c2``). Rows of a
-    box outside the map read zero (``c1 = -box`` for positions outside the
-    frame of a wrapped source)."""
-    plan = []
-    for b in range(count // box):
-        fb = f + b * box
-        c1, c2, n_rows = fb, 0, box
-        if rows.wrap < positions:
-            inside = 0 <= fb < positions
-            c1 = fb % rows.wrap % rows.seg if inside else -box
-            c2 = fb % rows.wrap // rows.seg if inside else 0
-            s0 = fb - c1
-            if (segment_boxes(rows, box, positions) and inside and s0 >= f
-                    and s0 + rows.seg <= min(f + count, positions)):
-                if c1:
-                    continue
-                n_rows = rows.seg
-        plan.append((b * box, n_rows, c1, c2))
-    return plan
+@functools.lru_cache(maxsize=None)
+def box_table(rows: RowMap, grid_w: int, positions: int) -> np.ndarray:
+    """The box table the kernel reads (``Params::boxes`` in
+    ``csrc/dots_block.cuh``): int32 ``[tiles, 2, 64, 4]``, for each tile of
+    a frame and each of its windows (0: conv1's rows ``[tile0 - grid_w,
+    tile0 + 128 + grid_w)``, 1: the projection's ``[tile0, tile0 + 128)``),
+    entry b the box whose rows start at window row ``b * box``: (row in
+    segment, segment, kind, 0), kind 0 none, 1 a box of ``box`` rows, 2 a
+    whole segment.
 
-
-def read_rows(src: torch.Tensor, rows: RowMap, box: int, positions: int,
-              n: int, f: int, count: int) -> torch.Tensor:
-    """Positions ``[f, f + count)`` of frame n of a block's input, ``[count,
-    cin]``, read as the kernel's TMA boxes (:func:`box_plan`) read them
-    from the 4-D map ``[N, segments, seg, cin]``: rows outside the map
-    zero."""
-    flat = src.reshape(-1)
-    wrapped = rows.wrap < positions
-    seg_len = rows.seg if wrapped else positions
-    segs = rows.wrap // rows.seg if wrapped else 1
-    seg_stride = rows.seg_stride if segs > 1 else rows.seg * rows.cin
-    out = torch.zeros((count, rows.cin), dtype=src.dtype)
-    for q, n_rows, c1, c2 in box_plan(rows, box, positions, f, count):
-        for i in range(n_rows):
-            if 0 <= c1 + i < seg_len and c2 < segs:
-                at = n * rows.frame + c2 * seg_stride + (c1 + i) * rows.cin
-                out[q + i] = flat[at:at + rows.cin]
-    return out
-
-
-def block_by_tiles(src: torch.Tensor, rows: RowMap, blk: DotsBlock,
-                   grid_w: int, positions: int, cluster: int, clusters: int,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """One block computed as the kernel's plan computes it: tile by tile in
-    the persistent grid's order, each tile from the source rows its boxes
-    read (y1 on the tile and one grid row either side, zero outside the
-    frame), ghosts storing nothing. Same arithmetic as
-    :func:`dots_block_plain`; ``[N, P, OUT]`` bf16."""
-    n_frames = src.shape[0]
-    per_frame = -(-positions // TILE_M)
+    An unwrapped source takes a box as it falls (TMA zero-fills rows
+    outside ``[0, P)``); a wrapped one is all zeros outside ``[0, P)`` (row
+    ``-box``), and where :func:`segment_boxes` holds, a segment that lies
+    whole in the window and the frame comes as one box from its first
+    row's entry."""
     box = box_rows(rows, grid_w, positions)
-    width, out_w = blk.w1.shape[0], blk.w3.shape[0]
-    cast = lambda t: t.to(dtype)
-    w2 = cast(blk.w2).reshape(width, 3, 3 * width)
-    out = torch.full((n_frames, positions, out_w), float("nan"),
-                     dtype=src.dtype)
-    rows1 = TILE_M + 2 * grid_w
-    for cta in schedule(n_frames, per_frame, cluster, clusters):
-        for tile in cta:
-            if tile is None:
-                continue
-            n, tile0 = tile // per_frame, tile % per_frame * TILE_M
-            f = np.arange(tile0 - grid_w, tile0 - grid_w + rows1)
-            v = cast(read_rows(src, rows, box, positions, n, tile0 - grid_w,
-                               rows1))
-            y1 = F.relu(v @ cast(blk.w1).T + cast(blk.b1)).to(src.dtype)
-            y1[torch.from_numpy((f < 0) | (f >= positions))] = 0
-            a = torch.cat([y1] * 3, dim=1)
-            acc = sum(cast(a[dy * grid_w:dy * grid_w + TILE_M]) @ w2[:, dy].T
-                      for dy in range(3))
-            y2 = F.relu(acc + cast(blk.b2)).to(src.dtype)
-            x = cast(read_rows(src, rows, box, positions, n, tile0, TILE_M))
-            res = x
-            if blk.wd is not None:
-                res = x @ cast(blk.wd).T
-                if blk.bd is not None:
-                    res = res + cast(blk.bd)
-            y3 = cast(y2) @ cast(blk.w3).T + cast(blk.b3)
-            keep = min(TILE_M, positions - tile0)
-            out[n, tile0:tile0 + keep] = F.relu(y3 + res).to(
-                src.dtype)[:keep]
-    return out
+    wrapped = rows.wrap < positions
+    whole = segment_boxes(rows, box, positions)
+    tiles = -(-positions // TILE_M)
+    table = np.zeros((tiles, 2, MAX_BOXES, 4), np.int32)
+    for t in range(tiles):
+        tile0 = t * TILE_M
+        windows = ((tile0 - grid_w, TILE_M + 2 * grid_w), (tile0, TILE_M))
+        for w, (f, count) in enumerate(windows):
+            if count // box > MAX_BOXES:
+                raise ValueError(f"{count // box} boxes of {box} rows in a "
+                                 f"window: the kernel takes {MAX_BOXES}")
+            for b in range(count // box):
+                fb = f + b * box
+                c1, c2, kind = fb, 0, 1
+                if wrapped:
+                    inside = 0 <= fb < positions
+                    c1 = fb % rows.wrap % rows.seg if inside else -box
+                    c2 = fb % rows.wrap // rows.seg if inside else 0
+                    s0 = fb - c1              # the segment's first row
+                    if (whole and inside and s0 >= f
+                            and s0 + rows.seg <= min(f + count, positions)):
+                        kind = 0 if c1 else 2
+                table[t, w, b] = (c1, c2, kind, 0) if kind else 0
+    table.flags.writeable = False
+    return table
 
 
-def launch_plan(symbol: str, n: int) -> Tuple[int, int]:
-    """(CTAs a cluster, CTAs) of the persistent grid that a launch on n
-    frames takes on the current card: the C entry ``symbol``
-    (``mimamo_layer1_dots_plan``, ``mimamo_layer2_dots_plan``)."""
+_tables: dict = {}     # (rows, grid_w, positions, device) -> the table there
+
+
+def _table_on(device: torch.device, rows: RowMap, grid_w: int,
+              positions: int) -> torch.Tensor:
+    """:func:`box_table` on ``device``, uploaded once."""
+    key = (rows, grid_w, positions, device)
+    table = _tables.get(key)
+    if table is None:
+        table = torch.from_numpy(box_table(rows, grid_w, positions).copy())
+        table = _tables[key] = table.to(device)
+    return table
+
+
+def launch_plan(symbol: str, n: int) -> int:
+    """CTAs of the persistent grid that a launch on n frames takes on the
+    current card: the C entry ``symbol`` (``mimamo_layer1_dots_plan``,
+    ``mimamo_layer2_dots_plan``)."""
     fn = getattr(library(), symbol)
-    fn.argtypes = [I, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    cluster, ctas = ctypes.c_int(), ctypes.c_int()
-    err = fn(n, ctypes.byref(cluster), ctypes.byref(ctas))
+    ctas = ctypes.c_int()
+    err = fn(n, ctypes.byref(ctas))
     if err:
         raise RuntimeError(f"{symbol}: CUDA error {err}")
-    return cluster.value, ctas.value
+    return ctas.value

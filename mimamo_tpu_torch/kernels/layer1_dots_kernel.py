@@ -38,8 +38,6 @@ from .dots_block import DotsBlock
 
 KERNEL = Kernel("mimamo_layer1_dots_block", dots_block.ARGTYPES)
 PLAN = "mimamo_layer1_dots_plan"   # C entry: the persistent grid
-CLUSTER = 2                      # CTAs a cluster (csrc/layer1_dots.cu)
-N3 = 128                         # output channels a conv3 pass
 GRID_H, GRID_W = 58, 64          # padded 56 x 56 grid, row stride 64
 P = GRID_H * GRID_W              # 3,712 positions a frame
 WIDTH, OUT_W, C_IN = 64, 256, 64
@@ -137,4 +135,5 @@ def layer1_dots(x: torch.Tensor, blocks: Tuple[DotsBlock, ...]
     _check(x, blocks)
     if x.device.type == "cpu":
         return layer1_dots_plain(x, blocks)
-    return dots_block.run(KERNEL, x, blocks, source_rows(), P, CROP)
+    return dots_block.run(KERNEL, x, blocks, source_rows(), GRID_W, P,
+                          CROP)

@@ -41,8 +41,6 @@ from .dots_block import DotsBlock
 
 KERNEL = Kernel("mimamo_layer2_dots_block", dots_block.ARGTYPES)
 PLAN = "mimamo_layer2_dots_plan"   # C entry: the persistent grid
-CLUSTER = 1                      # CTAs a cluster (csrc/layer2_dots.cu)
-N3 = 256                         # output channels a conv3 pass
 BLOCKS, C_IN, WIDTH, OUT_W = 4, 256, 128, 512
 GRID_H, GRID_W = 30, 32          # padded 28 x 28 grid, row stride 32
 P = GRID_H * GRID_W              # 960 positions a frame
@@ -138,4 +136,5 @@ def layer2_dots(x: torch.Tensor, blocks: Tuple[DotsBlock, ...]
     _check(x, blocks)
     if x.device.type == "cpu":
         return layer2_dots_plain(x, blocks)
-    return dots_block.run(KERNEL, x, blocks, source_rows(), P, CROP)
+    return dots_block.run(KERNEL, x, blocks, source_rows(), GRID_W, P,
+                          CROP)

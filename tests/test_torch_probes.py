@@ -316,64 +316,140 @@ def test_dots_wrappers_reject_bad_input():
                                    dtype=torch.bfloat16), dots)
 
 
-# -- the kernels' persistent plan (csrc/dots_block.cuh), on the host --------
+# -- the kernels' persistent grid and box table (csrc/dots_block.cuh) -------
+
+def _cta_tiles(tiles, ctas):
+    """The tiles each CTA of the persistent grid computes, in order: the
+    kernel's loop ``for (tile = blockIdx.x; tile < tiles; tile +=
+    gridDim.x)``."""
+    return [list(range(k, tiles, ctas)) for k in range(ctas)]
+
+
+def _windows(mod):
+    """Each window of a tile the box table plans: (first position relative
+    to the tile, positions), conv1's rows then the projection's."""
+    t, g = dots_block.TILE_M, mod.GRID_W
+    return ((-g, t + 2 * g), (0, t))
+
+
+def _table_boxes(table, box, rows, t, w):
+    """The boxes of window w of tile t in the kernel's table: (first row in
+    the window, rows, row in segment, segment) of every entry of kind 1 or
+    2, as the producer issues them."""
+    return [(b * box, box if kind == 1 else rows.seg, c1, c2)
+            for b, (c1, c2, kind, _) in enumerate(table[t, w].tolist())
+            if kind]
+
 
 @pytest.mark.parametrize("n", [1, 3, 5, 384])
 @pytest.mark.parametrize("mod", [l1, l2d], ids=["layer1", "layer2"])
 def test_dots_schedule_covers_every_tile_once(mod, n):
-    """The persistent grid at N frames, on a card that holds 33 clusters
-    of 4 at once (132 SMs) and on one that holds 2: every output tile is
-    computed by exactly one CTA; the CTAs of a cluster walk the same number
-    of groups of neighbouring tiles; ghosts (a group past the last tile,
-    the odd tile counts of layer1's 29 a frame) only in the last group."""
+    """The persistent grid at N frames, with the CTAs that a card of 132 SMs
+    holds (one an SM) and with 2: every output tile is computed by exactly
+    one CTA, every CTA has a tile and no CTA has two more than another; the
+    box table of every block plans each tile of a frame."""
     per_frame = -(-mod.P // dots_block.TILE_M)
     tiles = n * per_frame
-    for fits in (132 // mod.CLUSTER, 2):
-        clusters = dots_block.grid(n, per_frame, mod.CLUSTER, fits)
-        assert clusters == min(-(-tiles // mod.CLUSTER), fits)
-        plan = dots_block.schedule(n, per_frame, mod.CLUSTER, clusters)
-        assert len(plan) == clusters * mod.CLUSTER
-        done = [t for cta in plan for t in cta if t is not None]
+    for fits in (132, 2):
+        plan = _cta_tiles(tiles, min(tiles, fits))
+        done = [t for cta in plan for t in cta]
         assert sorted(done) == list(range(tiles))
-        ghosts = sum(t is None for cta in plan for t in cta)
-        assert ghosts == -tiles % mod.CLUSTER
-        for k in range(clusters):
-            ctas = plan[k * mod.CLUSTER:(k + 1) * mod.CLUSTER]
-            assert len({len(cta) for cta in ctas}) == 1
-            for i, group in enumerate(zip(*ctas)):
-                g = k + i * clusters
-                assert all(t in (g * mod.CLUSTER + r, None)
-                           for r, t in enumerate(group))
-                assert None not in group or g == -(-tiles // mod.CLUSTER) - 1
+        counts = [len(cta) for cta in plan]
+        assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    for rows in mod.source_rows():
+        table = dots_block.box_table(rows, mod.GRID_W, mod.P)
+        assert table.shape == (per_frame, 2, dots_block.MAX_BOXES, 4)
 
 
 @pytest.mark.parametrize("mod", [l1, l2d], ids=["layer1", "layer2"])
 def test_dots_box_plan_covers_each_window_row_once(mod):
-    """The producer's boxes (``dots_block.box_plan``) for every conv1 and
-    projection window of a frame: each window row once, each box inside one
-    segment of the map; the layer2 plane (28-pixel segments) in whole
-    segments and 4-row pieces, at most 18 boxes for the frame's rows of a
-    192-row window where 4-row boxes alone took 48."""
-    per_frame = -(-mod.P // dots_block.TILE_M)
-    for b, rows in enumerate(mod.source_rows()[:2]):
+    """The box table the kernel reads (``dots_block.box_table``), for every
+    conv1 and projection window of a frame: each window row once, each box
+    inside one segment of the map, no entry past the window's boxes; the
+    layer2 plane (28-pixel segments) in whole segments and 4-row pieces, at
+    most 18 boxes for the frame's rows of a 192-row window where 4-row boxes
+    alone took 48."""
+    for rows in mod.source_rows()[:2]:
         box = dots_block.box_rows(rows, mod.GRID_W, mod.P)
         pieces = dots_block.segment_boxes(rows, box, mod.P)
-        for t in range(per_frame):
-            tile0 = t * dots_block.TILE_M
-            for f, count in ((tile0 - mod.GRID_W,
-                              dots_block.TILE_M + 2 * mod.GRID_W),
-                             (tile0, dots_block.TILE_M)):
-                plan = dots_block.box_plan(rows, box, mod.P, f, count)
+        table = dots_block.box_table(rows, mod.GRID_W, mod.P)
+        for t in range(table.shape[0]):
+            for w, (df, count) in enumerate(_windows(mod)):
+                f = t * dots_block.TILE_M + df
+                plan = _table_boxes(table, box, rows, t, w)
                 covered = sorted(q + i for q, n, _, _ in plan
                                  for i in range(n))
                 assert covered == list(range(count))
+                assert not table[t, w, count // box:].any()
                 for q, n, c1, c2 in plan:
                     assert n in ((box, rows.seg) if pieces else (box,))
                     if rows.wrap < mod.P and c1 >= 0:
                         assert c1 + n <= rows.seg
-                if pieces and count > dots_block.TILE_M:
+                if pieces and w == 0:
                     assert sum(0 <= f + q < mod.P
                                for q, _, _, _ in plan) <= 18
+
+
+def _read_window(src, rows, table, box, positions, n, t, w, count):
+    """Window w of tile t of frame n of a block's input, ``[count, cin]``,
+    read as the kernel's TMA boxes of the table read it from the 4-D map
+    ``[N, segments, seg, cin]``: rows outside the map zero."""
+    flat = src.reshape(-1)
+    wrapped = rows.wrap < positions
+    seg_len = rows.seg if wrapped else positions
+    segs = rows.wrap // rows.seg if wrapped else 1
+    seg_stride = rows.seg_stride if segs > 1 else rows.seg * rows.cin
+    out = torch.zeros((count, rows.cin), dtype=src.dtype)
+    for q, n_rows, c1, c2 in _table_boxes(table, box, rows, t, w):
+        for i in range(n_rows):
+            if 0 <= c1 + i < seg_len and c2 < segs:
+                at = n * rows.frame + c2 * seg_stride + (c1 + i) * rows.cin
+                out[q + i] = flat[at:at + rows.cin]
+    return out
+
+
+def _block_by_tiles(src, rows, blk, grid_w, positions, ctas, dtype):
+    """One block computed as the kernel computes it: tile by tile in the
+    persistent grid's order, each tile from the source rows that the box
+    table's boxes read (y1 on the tile and one grid row either side, zero
+    outside the frame). Same arithmetic as ``dots_block_plain``; ``[N, P,
+    OUT]`` bf16, NaN where no tile wrote."""
+    n_frames, tile_m = src.shape[0], dots_block.TILE_M
+    per_frame = -(-positions // tile_m)
+    box = dots_block.box_rows(rows, grid_w, positions)
+    table = dots_block.box_table(rows, grid_w, positions)
+    width, out_w = blk.w1.shape[0], blk.w3.shape[0]
+    cast = lambda t: t.to(dtype)
+    w2 = cast(blk.w2).reshape(width, 3, 3 * width)
+    out = torch.full((n_frames, positions, out_w), float("nan"),
+                     dtype=src.dtype)
+    rows1 = tile_m + 2 * grid_w
+    for cta in _cta_tiles(n_frames * per_frame, ctas):
+        for tile in cta:
+            n, t = divmod(tile, per_frame)
+            tile0 = t * tile_m
+            f = np.arange(tile0 - grid_w, tile0 - grid_w + rows1)
+            v = cast(_read_window(src, rows, table, box, positions, n, t, 0,
+                                  rows1))
+            y1 = F.relu(v @ cast(blk.w1).T + cast(blk.b1)).to(src.dtype)
+            y1[torch.from_numpy((f < 0) | (f >= positions))] = 0
+            a = torch.cat([y1] * 3, dim=1)
+            acc = sum(cast(a[dy * grid_w:dy * grid_w + tile_m]) @ w2[:, dy].T
+                      for dy in range(3))
+            y2 = F.relu(acc + cast(blk.b2)).to(src.dtype)
+            x = cast(_read_window(src, rows, table, box, positions, n, t, 1,
+                                  tile_m))
+            res = x
+            if blk.wd is not None:
+                res = x @ cast(blk.wd).T
+                if blk.bd is not None:
+                    res = res + cast(blk.bd)
+            y3 = cast(y2) @ cast(blk.w3).T + cast(blk.b3)
+            keep = min(tile_m, positions - tile0)
+            assert torch.isnan(out[n, tile0:tile0 + keep].float()).all()
+            out[n, tile0:tile0 + keep] = F.relu(y3 + res).to(
+                src.dtype)[:keep]
+    return out
 
 
 def _plan_cases():
@@ -393,19 +469,20 @@ def _plan_cases():
 @pytest.mark.parametrize("case", ["layer1-block0", "layer1-block1",
                                   "layer2-block0"])
 def test_dots_plan_emulation_is_the_plain_block(case):
-    """A block computed as the kernel's plan computes it (tile by tile in
-    the persistent order of 3 clusters, sources read box by box through the
-    row map, y1 zero outside the frame, ghosts storing nothing) gives
+    """A block computed as the kernel computes it (tile by tile in the
+    persistent order of 3 CTAs, sources read box by box from the box table
+    the kernel is given, y1 zero outside the frame) gives
     ``dots_block_plain``'s output bit for bit: the wrapped layer1 input
     with the projection, a stored state with the identity residual, the
-    layer2 plane (4-row boxes) with the projection. Both in float64: a
-    float32 product on the CPU rounds differently on 128 rows than on a
-    frame's, which moved 19 of 491,520 layer2 outputs by a bf16 ulp."""
+    layer2 plane (4-row boxes and whole segments) with the projection.
+    Both in float64: a float32 product on the CPU rounds differently on 128
+    rows than on a frame's, which moved 19 of 491,520 layer2 outputs by a
+    bf16 ulp."""
     mod, src, rows, blk = _plan_cases()[case]
     want = dots_block.dots_block_plain(gather_rows(src, rows, mod.P), blk,
                                        mod.GRID_W, torch.float64)
-    got = dots_block.block_by_tiles(src, rows, blk, mod.GRID_W, mod.P,
-                                    mod.CLUSTER, 3, torch.float64)
+    got = _block_by_tiles(src, rows, blk, mod.GRID_W, mod.P, 3,
+                          torch.float64)
     assert dots_block.box_rows(rows, mod.GRID_W, mod.P) == (
         {l1: 64, l2d: 4}[mod] if rows.wrap < mod.P else {l1: 64, l2d: 32}[mod])
     assert torch.equal(got, want)
