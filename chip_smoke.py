@@ -14,7 +14,13 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      the special values of atan2; times the kernel, the plain version
      and, where PyTorch computes the same function, the library call (a
      yardstick only; the port never calls it). A time is the median of 5
-     event-timed batches of 10 back-to-back calls, after 2 warm-up calls;
+     event-timed batches of 10 back-to-back calls, after 2 warm-up calls.
+     ``fft_invariance``: the phase stage gives a frame the same bits
+     whatever batch it arrives in (``bench/fft_invariance.py``: 384 seeded
+     crops, each of 3 frames at 4 positions of batches of 1 to 384
+     frames; the grey frames, the forward FFT, each scale's inverse and the
+     bands end to end, and the phase stacks of an 8 x 48 clip against its
+     streamed chunks), bit for bit: any unequal element fails;
   3. drives ``Mimamo.predict_clips`` at the flagship shape with random
      weights from a seed, checks shape and finiteness, and checks that
      every kernel was launched on that run (phase 1: all scales in one
@@ -120,16 +126,18 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      twice the crop), the frames reaching the stem and layer2 (B x T / k at
      stride k), step and backbone times; the fp32 card against the CPU on
      one clip x 8 frames (the ``fp32`` phase's gates); the fp32 streaming
-     path at 2 GRU layers and at stride 2 (:func:`variant_stream`: where
-     two FFTs put a phase difference on the two sides of the +-pi wrap,
-     the outputs are reported and the variant's own path is gated);
+     path at 2 GRU layers and at stride 2 (:func:`variant_stream`: the
+     chunks' phase stacks equal the whole clip's, no value jumps, and the
+     outputs hold their gates; only against the CPU's FFT may a phase
+     difference land on the other side of the +-pi wrap);
      layer2 against its plain
      version on the 14 x 14 grid of the 112 backbone input;
  16. ``parallel``: data parallelism over ``torch.distributed``. A world of
      one over NCCL on the card: ``cli train --data-parallel --coordinator
      127.0.0.1:0 --num-processes 1 --process-id 0`` on a seeded synthetic
      Aff-Wild2 corpus at the default fp32 config against plain ``cli
-     train`` (rows and checkpoint within 1e-6); ``predict_batch`` of 7
+     train``, both on deterministic algorithms (rows and checkpoint within
+     1e-6); ``predict_batch`` of 7
      clips against ``predict_clips`` in bf16 and fp32 (within 1e-6), and
      the step and ``predict_batch`` times at a world of one beside the plain
      ones (the cost of forming the group: every collective takes the local
@@ -145,7 +153,8 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      row written by rank 0); ``cli eval --data-parallel`` against one
      process (within 1e-6); ``cli predict-corpus --data-parallel`` over the
      ``serve`` phase's 3 videos (disjoint videos, a manifest each; the CSVs
-     of one process within 1e-6);
+     of one process within 1e-6); whether each rank's phase stacks equal
+     one process's over the union batch, printed beside Adam's cosine;
  17. ``a16b``: the JAX package's last modules. The torchvision stride
      placement (``FoldedResNet50(stride_in_1x1=False)``) in bf16 at B x T
      frames: one backbone call launches the stem once and layer2 3 times
@@ -181,6 +190,7 @@ of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -201,7 +211,7 @@ from mimamo_tpu_torch import (StreamingSession, api, checkpoints, dryrun,
                               train, weights)
 from mimamo_tpu_torch.backbone import (FoldedResNet50, ResNet50,
                                        fold_batchnorm)
-from mimamo_tpu_torch.bench import layer1_probe, layer2_probe
+from mimamo_tpu_torch.bench import fft_invariance, layer1_probe, layer2_probe
 from mimamo_tpu_torch.bench.dots_variants import ptxas_report
 from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
                                             PEAK_BYTES_PER_S,
@@ -463,6 +473,21 @@ def check_phase_shapes(cfg: MimamoConfig, frames: torch.Tensor) -> None:
             raise AssertionError(f"phase kernel on a frame against itself "
                                  f"or on zero lanes: {errs}")
     print(json.dumps({"phase_shapes_err": errs}), flush=True)
+
+
+def check_fft_invariance(cfg: MimamoConfig, line: str) -> dict:
+    """``fft_invariance.check`` on B x T seeded crops at the flagship's
+    pyramid and phase (docstring item 2): prints the counts, raises on any
+    element that is not bitwise equal."""
+    rgb = fft_invariance.crops(B * T, S, "cuda")
+    report = fft_invariance.check(rgb, cfg.pyramid, cfg.phase)
+    print(json.dumps({"fft_invariance": report, "fft_group": None,
+                      "fft_calls_per_forward": 1 + cfg.pyramid.height,
+                      "card": line}), flush=True)
+    if not report["equal"]:
+        raise AssertionError(f"the phase stage depends on the batch: "
+                             f"{report}")
+    return report
 
 
 def stem_work(crops: torch.Tensor, out: torch.Tensor) -> tuple:
@@ -1637,6 +1662,26 @@ def run_cli(argv: list) -> list:
     return [json.loads(x) for x in buf.getvalue().splitlines() if x]
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Inside, cuDNN and PyTorch take their deterministic algorithms (an
+    operation without one warns). With the defaults, two runs of the same
+    ``cli train`` in one process differ by up to ~1e-6 in a parameter
+    (``mimamo_tpu_torch/bench/train_repeat.py``: Adam's first step turns
+    the rounding noise of a tiny gradient into a step of up to lr); with
+    them, by nothing."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
 def read_csv(path: str) -> np.ndarray:
     return np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
 
@@ -1715,9 +1760,10 @@ def check_cli(state: dict, cfg: MimamoConfig, ckpt: str, media: dict,
 
         trained = os.path.join(tmp, "trained")
         t = time.perf_counter()
-        train_rows = run_cli(["train", "--dataset", "affwild2", "--root",
-                              media["aff"], "--ckpt", trained, "--epochs",
-                              "1"])
+        with deterministic_algorithms():     # cli_debug_nans compares
+            train_rows = run_cli(["train", "--dataset", "affwild2",
+                                  "--root", media["aff"], "--ckpt", trained,
+                                  "--epochs", "1"])
         report["cli_train_wall_ms"] = (time.perf_counter() - t) * 1e3
         report["cli_train_rows"] = train_rows
         restored = api.MimamoAPI(config=cfg, checkpoint_dir=trained,
@@ -1775,14 +1821,16 @@ def cli_tensorboard(media: dict, tmp: str) -> dict:
 def cli_debug_nans(state: dict, cfg: MimamoConfig, media: dict,
                    plain_ckpt: dict, tmp: str) -> dict:
     """``cli train --debug-nans`` for one epoch against the plain run
-    (rows and checkpoint within 1e-6: two fp32 runs on the card); the
+    (rows and checkpoint within 1e-6: two fp32 runs on the card, both on
+    deterministic algorithms); the
     frozen train step (4 x 48) with the NaN checks beside the plain one
     (host clock, median of 3 in turns); a NaN planted in the temporal
     head's weight raises ``FloatingPointError`` in the checked step."""
     ckpt = os.path.join(tmp, "debug_nans")
-    rows = run_cli(["train", "--dataset", "affwild2", "--root",
-                    media["aff"], "--epochs", "1", "--ckpt", ckpt,
-                    "--debug-nans"])
+    with deterministic_algorithms():
+        rows = run_cli(["train", "--dataset", "affwild2", "--root",
+                        media["aff"], "--epochs", "1", "--ckpt", ckpt,
+                        "--debug-nans"])
     report = {"rows": rows, "ckpt_vs_plain_max_abs": state_diff(
         checkpoints.load(ckpt)["model"], plain_ckpt)}
     batch = next(datasets.AffWild2Dataset(media["aff"], clip=cfg.clip)
@@ -2209,9 +2257,11 @@ class FramesSeen:
         stem_kernel.stem_fused, layer2_kernel.layer2_fused = self._real
 
 
-# a phase-stack value that moved by more than this between two FFTs of the
-# same frames (cuFFT plans differ with the batch; the CPU has its own FFT)
-# took a source pixel's phase difference across the +-pi wrap
+# a phase-stack value that moved by more than this between two runs of the
+# phase stage on the same frames took a source pixel's phase difference
+# across the +-pi wrap: none may between two runs on the card (the stage
+# gives a frame the same bits whatever its batch: check_fft_invariance);
+# between the card and the CPU, whose FFTs differ, some do
 PHASE_JUMP = 0.1
 
 
@@ -2235,22 +2285,22 @@ def variant_stream(model: Mimamo, state: dict, clips: np.ndarray) -> dict:
     """The fp32 variant streamed on the card (a session of 8 slots fed
     chunks of 16) against its ``predict_clips``.
 
-    A chunk's FFT runs in another batch than the whole clip's, and the
-    two can put a phase difference on the two sides of the +-pi wrap
-    (``phase_jumps``), which moves the outputs by far more than rounding.
-    So a comparison of outputs is gated where no phase value jumped, and
-    the path the variant changes is gated always:
+    A chunk's phase stage runs on another batch than the whole clip's and
+    must give the same stacks: no value may jump (``phase_jumps``) between
+    two runs on the card. Gated:
       * stride 1 (stacked GRUs): the temporal model over the whole clip's
         own phase stacks and embeddings, chunk by chunk with its carries,
         against one pass (VARIANT_STREAM_REL_TOL); the session against
-        ``predict_clips``;
+        ``predict_clips`` (the same bound, no jump);
       * stride k > 1, where each chunk anchors on its own grid after its
         context frame (as in the JAX package): every chunk's embeddings on
         the card against the CPU (the ``fp32`` phase's embedding gate);
         ``predict_stream``'s first chunk (clip mode) against
-        ``predict_clips`` before its first anchor clamp; the session's
-        first two chunks of one slot against a CPU session at the output
-        gate. Raises past a gate."""
+        ``predict_clips`` before its first anchor clamp (no jump, the same
+        bound); the session's first two chunks of one slot against a CPU
+        session at the output gate, except where the CPU's FFT put a phase
+        difference on the other side of the +-pi wrap (reported). Raises
+        past a gate."""
     whole = model.predict_clips(clips).cpu().numpy()
     _sess, streamed = fill_session(model, clips)
     x = torch.from_numpy(clips).cuda().float()
@@ -2280,9 +2330,8 @@ def variant_stream(model: Mimamo, state: dict, clips: np.ndarray) -> dict:
             "session_vs_clips_max_rel": max_rel(streamed, whole),
             "session_phase_jumps": jumps})
         ok = (out["temporal_chunked_vs_whole_max_rel"]
-              <= VARIANT_STREAM_REL_TOL
-              and (jumps or out["session_vs_clips_max_rel"]
-                   <= VARIANT_STREAM_REL_TOL))
+              <= VARIANT_STREAM_REL_TOL and jumps == 0
+              and out["session_vs_clips_max_rel"] <= VARIANT_STREAM_REL_TOL)
     else:
         f_star = k * (-(-CHUNK // k) - 1) + 1
         first, _ = model.predict_stream(clips[:, :CHUNK])
@@ -2319,10 +2368,9 @@ def variant_stream(model: Mimamo, state: dict, clips: np.ndarray) -> dict:
             "session_card_vs_cpu_phase_jumps": session_jumps,
             "seam_drift_max_abs": float(np.abs(streamed - whole).max()),
             "clips_max_abs": float(np.abs(whole).max())})
-        ok = (emb_rel <= FP32_EMB_REL_TOL
-              and (first_jumps or out[
-                  "first_chunk_vs_clips_before_clamp_max_rel"]
-                  <= VARIANT_STREAM_REL_TOL)
+        ok = (emb_rel <= FP32_EMB_REL_TOL and first_jumps == 0
+              and out["first_chunk_vs_clips_before_clamp_max_rel"]
+              <= VARIANT_STREAM_REL_TOL
               and (session_jumps or out["session_card_vs_cpu_max_rel"]
                    <= FP32_OUT_REL_TOL))
     if not ok:
@@ -2546,20 +2594,19 @@ PARALLEL_TIMEOUT = 300       # the phase's rank processes, seconds
 # slices, 2 steps at lr 1e-6: Adam's first update moves an element whose
 # gradient is rounding noise by lr either way, with a sign that the
 # summation order decides, and at the default lr (1e-4) that moved the
-# second step's metrics by 6e-4 on the card. The ranks' phase stage runs
-# cuFFT on other batches than the one process, and on the card that moves
-# a few phase values across the +-pi wrap (PR 12's jumps between cuFFT
-# batches): the gradient then moves by a few percent while the temporal
-# step on the same inputs agrees to rounding. So the gates are set between
-# that noise and the faults they are for. Rows (rounded to 4 decimals);
-# Adam's first moments as one vector: cosine and norm ratio (a gradient
-# not divided by the world doubles the norm; local BatchNorm statistics
-# turn its direction); the temporal BN running stats (local statistics
-# move them by ~1e-2); every parameter within 2 lr a step.
+# second step's metrics by 6e-4 on the card. The ranks' phase stacks equal
+# the one process's (the phase stage does not depend on the batch), so the
+# moments agree to rounding (cosine 1 - 4e-8 on an H100). The gates are
+# set between that noise and the faults they are for. Rows
+# (rounded to 4 decimals); Adam's first moments as one vector: cosine and
+# norm ratio (a gradient not divided by the world doubles the norm; local
+# BatchNorm statistics turn its direction); the temporal BN running stats
+# (local statistics move them by ~1e-2); every parameter within 2 lr a
+# step.
 PARALLEL_LR = 1e-6
 PARALLEL_ROW_ATOL = 1e-4
-PARALLEL_MOMENT_COS = 0.95
-PARALLEL_MOMENT_NORM_TOL = 0.2
+PARALLEL_MOMENT_COS = 0.999
+PARALLEL_MOMENT_NORM_TOL = 0.01
 PARALLEL_BN_ATOL = 1e-4
 
 
@@ -2597,7 +2644,7 @@ def train_union(root: str, world: int) -> tuple:
     does on ``world`` ranks, in one process on the card: each step over the
     concatenation of the ranks' batches (``fit``'s draws, rank by rank).
     Returns (the epoch's mean metrics, the model's state_dict, the
-    optimizer's state_dict)."""
+    optimizer's state_dict, :func:`rank_stacks` of the first step)."""
     cfg = dataclasses.replace(MimamoConfig(), train=TrainSpec(
         epochs=1, learning_rate=PARALLEL_LR))
     spec = cfg.train
@@ -2611,24 +2658,46 @@ def train_union(root: str, world: int) -> tuple:
     model.load_state_dict(weights.init_variables(cfg, spec.seed))
     st = train.create_train_state(model, total_steps=steps)
     step = train.make_train_step(model)
-    agg = {}
+    agg, stacks = {}, None
     for _ in range(steps):
         parts = [next(d) for d in draws]
+        if stacks is None:
+            stacks = rank_stacks(model, [p["clips"] for p in parts])
         _, metrics = step(st, {k: np.concatenate([p[k] for p in parts])
                                for k in parts[0]})
         for k, v in metrics.items():
             agg[k] = agg.get(k, 0.0) + float(v) / steps
     agg["steps"] = steps
-    return agg, model.state_dict(), st.optimizer.state_dict()
+    return agg, model.state_dict(), st.optimizer.state_dict(), stacks
+
+
+def rank_stacks(model: Mimamo, clips: list) -> dict:
+    """Each rank's phase stacks (its own ``clips``, as its train step makes
+    them) against one process's over the concatenation: unequal elements
+    and whether all are bitwise equal."""
+    def stacks(x):
+        return model._micro_motion(to_grayscale(
+            torch.from_numpy(np.ascontiguousarray(x)).cuda().float()))
+
+    with torch.no_grad():
+        whole = stacks(np.concatenate(clips))
+        unequal, first = 0, 0
+        for x in clips:
+            got = stacks(x)
+            unequal += fft_invariance.unequal(got,
+                                              whole[first:first + len(x)])
+            first += len(x)
+    return {"equal": unequal == 0, "unequal": unequal}
 
 
 def check_train_ranks(ckpt: str, results: list, union: tuple) -> dict:
     """``cli train`` on 2 ranks (``results``, checkpoint and log under
     ``ckpt``) against :func:`train_union`."""
-    want, want_model, want_opt = union
+    want, want_model, want_opt, stacks = union
     rows = [res.lines[-1] if res.rc == 0 and res.lines else None
             for res in results]
-    report = {"rows": rows, "one_process": want}
+    report = {"rows": rows, "one_process": want,
+              "phase_stacks_ranks_vs_one": stacks}
     if None in rows or not os.path.isdir(ckpt):
         return report
     saved = checkpoints.load(ckpt)
@@ -2677,15 +2746,17 @@ def check_parallel(state: dict, line: str) -> dict:
         media = slice_media(tmp)
         root = media["aff"]
         rows, saved = {}, {}
-        # port 0: a world of one needs no peer to find its store
-        for name, flags in (("plain", []), ("world1", [
-                "--data-parallel", "--coordinator", "127.0.0.1:0",
-                "--num-processes", "1", "--process-id", "0"])):
-            ckpt = os.path.join(tmp, name)
-            rows[name] = run_cli(["train", "--dataset", "affwild2", "--root",
-                                  root, "--epochs", "1", "--ckpt", ckpt]
-                                 + flags)
-            saved[name] = checkpoints.load(ckpt)["model"]
+        # port 0: a world of one needs no peer to find its store; the same
+        # computation, so both on deterministic algorithms
+        with deterministic_algorithms():
+            for name, flags in (("plain", []), ("world1", [
+                    "--data-parallel", "--coordinator", "127.0.0.1:0",
+                    "--num-processes", "1", "--process-id", "0"])):
+                ckpt = os.path.join(tmp, name)
+                rows[name] = run_cli(["train", "--dataset", "affwild2",
+                                      "--root", root, "--epochs", "1",
+                                      "--ckpt", ckpt] + flags)
+                saved[name] = checkpoints.load(ckpt)["model"]
         report["cli_train_rows"] = rows
         report["cli_train_world1_vs_plain"] = {
             "rows_max_abs": max(
@@ -2802,6 +2873,12 @@ def check_parallel(state: dict, line: str) -> dict:
         for r in report["eval_two_ranks"]
         for k in ("valence_ccc", "arousal_ccc", "mean_ccc"))
     print(json.dumps({"parallel_phase": report}), flush=True)
+    tr = report["train_two_ranks"]
+    print(json.dumps({
+        "parallel_phase_stacks_ranks_vs_one": tr[
+            "phase_stacks_ranks_vs_one"],
+        "parallel_adam_m_cos_norm_ratio": tr.get("adam_m_cos_norm_ratio"),
+        "card": line}), flush=True)
     w1 = report["cli_train_world1_vs_plain"]
     co = report["corpus_two_ranks"]
     sub = lambda d: {k: d[k] for k in dryrun.KERNELS}  # noqa: E731
@@ -3183,6 +3260,7 @@ def main() -> int:
     with torch.no_grad():
         check_small_shapes(model)
         check_phase_shapes(cfg, to_grayscale(crops))
+        check_fft_invariance(cfg, line)
         recs = [check_phase(to_grayscale(crops), cfg),
                 check_stem(crops.reshape(B * T, S, S, 3), model),
                 check_layer2(crops.reshape(B * T, S, S, 3), model)]

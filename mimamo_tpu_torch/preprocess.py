@@ -49,10 +49,17 @@ def work_dtype(spec: BackboneSpec) -> torch.dtype:
 
 
 def to_grayscale(frames_rgb: torch.Tensor) -> torch.Tensor:
-    """[..., H, W, 3] RGB -> [..., H, W] BT.601 luma."""
+    """[..., H, W, 3] RGB -> [..., H, W] BT.601 luma, per pixel
+    ``fma(b, w_b, fma(g, w_g, r * w_r))``: the JAX package's value on the
+    CPU, bit for bit. Elementwise, so that a pixel's value does not depend
+    on the batch it arrives in: a matrix-vector product gave a pixel other
+    bits on the card at 384 frames than at 136, and the phase stage turned
+    such last bits into jumps of 2 pi where a phase difference lies near
+    +-pi (``mimamo_tpu_torch/bench/fft_invariance.py``)."""
     wts = torch.tensor(_LUMA_RGB, dtype=frames_rgb.dtype,
                        device=frames_rgb.device)
-    return frames_rgb @ wts
+    r, g, b = frames_rgb.unbind(-1)
+    return torch.addcmul(torch.addcmul(r * wts[0], g, wts[1]), b, wts[2])
 
 
 def _upscale2x_axis(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -20,6 +20,7 @@ from mimamo_tpu_torch import weights
 from mimamo_tpu_torch.io import openface as topenface
 from mimamo_tpu_torch.runner import Mimamo
 
+from test_torch_decode import drop_passed_tmp_path  # noqa: F401
 from test_torch_runner import S, T, _configs
 
 # crops on the 0..255 scale: the port and the JAX package agree to this

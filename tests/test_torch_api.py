@@ -19,7 +19,8 @@ from mimamo_tpu_torch import api, weights
 from mimamo_tpu_torch.data.crops import CropSource
 
 from test_torch_runner import S, T, _configs
-from test_torch_decode import same_native_library  # noqa: F401
+from test_torch_decode import (  # noqa: F401
+    drop_if_passed, drop_passed_tmp_path, same_native_library)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "bench"))
 import tracker_eval  # noqa: E402
@@ -51,10 +52,11 @@ def _read_csv(path):
 
 
 @pytest.fixture(scope="module")
-def video_case(weights_case, tmp_path_factory):
+def video_case(request, weights_case, tmp_path_factory):
     """A written 14-frame video of a moving rendered face, and the JAX
-    API's results on it."""
+    API's results on it (the directory goes when the module passed)."""
     pytest.importorskip("cv2")
+    failed = request.session.testsfailed
     jcfg, _tcfg, variables, _state = weights_case
     root = tmp_path_factory.mktemp("video")
     video = str(root / "clip.mp4")
@@ -77,7 +79,8 @@ def video_case(weights_case, tmp_path_factory):
     ref["feats"] = np.load(japi.FeatureExtractor(
         config=jcfg, variables=variables, batch_size=4).extract(
         ref["crops"], str(root / "jax.feat.npy")))
-    return video, ref
+    yield video, ref
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 def test_predict_matches_jax(weights_case, video_case, tmp_path):
@@ -159,20 +162,23 @@ def test_feature_extractor_matches_jax(weights_case, video_case, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def crops_case(weights_case, tmp_path_factory):
+def crops_case(request, weights_case, tmp_path_factory):
     """A packed ``.npy`` of 19 seeded uint8 crops and the JAX API's
     ``predict_crops`` on it (accumulated; streamed with emotions)."""
     jcfg, _tcfg, variables, _state = weights_case
-    path = str(tmp_path_factory.mktemp("crops") / "c.npy")
+    failed = request.session.testsfailed
+    root = tmp_path_factory.mktemp("crops")
+    path = str(root / "c.npy")
     np.save(path, np.random.default_rng(6).integers(
         0, 256, (19, S, S, 3), dtype=np.uint8))
     ja = japi.MimamoAPI(config=jcfg, variables=variables)
-    return path, {
+    yield path, {
         "accumulate": ja.predict_crops(path, chunk=WINDOW),
         "stream": ja.predict_crops(path, chunk=WINDOW, emotions=True,
                                    streaming_threshold=0),
         "smoothed": ja.predict_crops(path, chunk=WINDOW, smooth=3,
                                      max_frames=11)}
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 def test_predict_crops_matches_jax(weights_case, crops_case, tmp_path):

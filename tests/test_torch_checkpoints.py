@@ -23,6 +23,7 @@ from mimamo_tpu_torch import api, checkpoints, train, weights
 from mimamo_tpu_torch import config as tc
 from mimamo_tpu_torch.runner import Mimamo
 
+from test_torch_decode import drop_passed_tmp_path  # noqa: F401
 from test_torch_runner import S, T, _configs
 
 

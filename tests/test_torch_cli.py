@@ -38,7 +38,8 @@ from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.io import decode
 from mimamo_tpu_torch.runner import Mimamo
 
-from test_torch_decode import same_native_library  # noqa: F401
+from test_torch_decode import (  # noqa: F401
+    drop_if_passed, drop_passed_tmp_path, same_native_library)
 from test_torch_serve import (CLIP, S, SMALL_FLAGS, small_configs,
                               small_weights)
 
@@ -53,9 +54,11 @@ FLAGS = SMALL_FLAGS + ["--cpu"]
 
 
 @pytest.fixture(scope="module")
-def case(tmp_path_factory):
+def case(request, tmp_path_factory):
     """The configs, the JAX variables, a port checkpoint of them, a
-    written video with a boxes file, and a synthetic Aff-Wild2 corpus."""
+    written video with a boxes file, and a synthetic Aff-Wild2 corpus (the
+    directory goes when the module passed)."""
+    failed = request.session.testsfailed
     jcfg, tcfg = small_configs()
     variables, state = small_weights(2)
     root = tmp_path_factory.mktemp("cli")
@@ -73,9 +76,10 @@ def case(tmp_path_factory):
     aff = str(root / "aff")
     datasets.make_synthetic_affwild2(aff, n_videos=3, frames=2 * CLIP + 5,
                                      size=S, seed=6)
-    return {"jcfg": jcfg, "tcfg": tcfg, "variables": variables,
-            "ckpt": ckpt, "video": video, "boxes": boxes_path, "aff": aff,
-            "root": root}
+    yield {"jcfg": jcfg, "tcfg": tcfg, "variables": variables,
+           "ckpt": ckpt, "video": video, "boxes": boxes_path, "aff": aff,
+           "root": root}
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,8 @@ from mimamo_tpu_torch.config import BackboneSpec
 from mimamo_tpu_torch.runner import Mimamo
 from mimamo_tpu_torch.temporal import TwoStreamRNN
 
+from test_torch_decode import (  # noqa: F401
+    drop_if_passed, drop_passed_tmp_path)
 from test_torch_serve import CLIP, S, SMALL_FLAGS, small_configs
 
 OUT_ATOL = 1e-4
@@ -96,10 +98,12 @@ def _save(path, sd: dict, meta=None) -> str:
 
 
 @pytest.fixture(scope="module")
-def src(tmp_path_factory):
+def src(request, tmp_path_factory):
     """The configs, the two source ``state_dict``s as numpy, their ``.pth``
     files (the backbone also with bgr / mean meta), a [1, CLIP] uint8 crop
-    clip as ``.npy``, and one port ``convert`` of both files."""
+    clip as ``.npy``, and one port ``convert`` of both files (the
+    directory goes when the module passed)."""
+    failed = request.session.testsfailed
     jcfg, tcfg = small_configs()
     root = tmp_path_factory.mktemp("convert")
     bb = _dag(_values(_shapes(lambda: ResNet50(BackboneSpec())), 11))
@@ -127,7 +131,8 @@ def src(tmp_path_factory):
                      "--temporal-pth", case["tm_pth"],
                      "--temporal-prefix-map", prefix_map,
                      "--out", case["ckpt"]] + FLAGS) == 0
-    return case
+    yield case
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 @pytest.fixture(scope="module")

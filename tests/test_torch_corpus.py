@@ -23,7 +23,8 @@ from mimamo_tpu_torch.corpus import CorpusRunner
 from mimamo_tpu_torch.io import decode, native_loader
 from mimamo_tpu_torch.runner import Mimamo
 
-from test_torch_decode import same_native_library  # noqa: F401
+from test_torch_decode import (  # noqa: F401
+    drop_if_passed, drop_passed_tmp_path, same_native_library)
 from test_torch_serve import small_configs, small_weights
 
 pytest.importorskip("cv2")
@@ -41,13 +42,15 @@ def needs_native():
 
 
 @pytest.fixture(scope="module")
-def corpus_dir(tmp_path_factory):
+def corpus_dir(request, tmp_path_factory):
+    failed = request.session.testsfailed
     root = tmp_path_factory.mktemp("corpus")
     rng = np.random.default_rng(0)
     for i, t in enumerate(LENGTHS):
         frames = rng.uniform(0, 255, (t, 48, 64, 3)).astype(np.uint8)
         decode.write_video(str(root / f"v{i}.mp4"), frames)
-    return root
+    yield root
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 def _paths(root):
@@ -64,14 +67,17 @@ def case():
 
 
 @pytest.fixture(scope="module")
-def jax_csvs(case, corpus_dir, tmp_path_factory):
+def jax_csvs(request, case, corpus_dir, tmp_path_factory):
     """The JAX CorpusRunner's CSVs of the three videos (Python loader)."""
     _m, jmodel, variables = case
-    out = str(tmp_path_factory.mktemp("jax_out"))
+    failed = request.session.testsfailed
+    root = tmp_path_factory.mktemp("jax_out")
+    out = str(root)
     stats = jcorpus.CorpusRunner(jmodel, variables, out, batch_clips=2,
                                  use_native=False).run(_paths(corpus_dir))
     assert stats["videos"] == 3
-    return out
+    yield out
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 def _csv(path):
@@ -259,12 +265,14 @@ class TestShortVideos:
     outputs cut back to the real frame count."""
 
     @pytest.fixture(scope="class")
-    def short_dir(self, tmp_path_factory):
+    def short_dir(self, request, tmp_path_factory):
+        failed = request.session.testsfailed
         root = tmp_path_factory.mktemp("short")
         rng = np.random.default_rng(1)
         decode.write_video(str(root / "tiny.mp4"), rng.uniform(
             0, 255, (5, 48, 64, 3)).astype(np.uint8))
-        return root
+        yield root
+        drop_if_passed(root, failed, request.session.testsfailed)
 
     @pytest.mark.usefixtures("needs_native")
     def test_native_loader_pads_short_video(self, short_dir):

@@ -21,16 +21,21 @@ from mimamo_tpu_torch.data import eval as teval
 from mimamo_tpu_torch.runner import Mimamo
 from mimamo_tpu_torch.streaming import StreamingSession
 
+from test_torch_decode import (  # noqa: F401
+    drop_if_passed, drop_passed_tmp_path)
 from test_torch_runner import S, T, _configs
 
 
 @pytest.fixture(scope="module")
-def corpora(tmp_path_factory):
+def corpora(request, tmp_path_factory):
     """Aff-Wild2 and OMG corpora written by each package's generator (same
-    seeds), with feature sidecars in the Aff-Wild2 ones."""
-    out = {}
+    seeds), with feature sidecars in the Aff-Wild2 ones (the directories go
+    when the module passed)."""
+    failed = request.session.testsfailed
+    out, roots = {}, []
     for name, mod in (("jax", jds), ("port", tds)):
         root = tmp_path_factory.mktemp(name)
+        roots.append(root)
         aff = str(root / "aff")
         mod.make_synthetic_affwild2(aff, n_videos=3, frames=11, size=S,
                                     seed=4)
@@ -43,7 +48,9 @@ def corpora(tmp_path_factory):
         manifest = mod.make_synthetic_omg(omg, n_videos=2, n_utts=3,
                                           frames=7, size=S, seed=5)
         out[name] = (aff, omg, manifest)
-    return out
+    yield out
+    for root in roots:
+        drop_if_passed(root, failed, request.session.testsfailed)
 
 
 def _datasets(mod, paths, clip):

@@ -5,6 +5,7 @@ Everything here is numpy/OpenCV on both sides, so it must be exactly
 equal."""
 
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -43,6 +44,31 @@ def same_native_library():
             mp.setattr(jnative, "_LIB_PATHS", (tnative._NATIVE.lib._name,))
             mp.setattr(jnative, "_LIB", jnative._load_lib())
         yield
+
+
+def drop_if_passed(path, failed_before: int, failed_after: int) -> bool:
+    """Remove the directory ``path`` when no test failed between the two
+    counts of the session's failures; keep it, for debugging, when one did.
+    Returns whether it was removed."""
+    if failed_after > failed_before:
+        return False
+    shutil.rmtree(path, ignore_errors=True)
+    return True
+
+
+@pytest.fixture(autouse=True)
+def drop_passed_tmp_path(request):
+    """Remove a test's ``tmp_path`` when the test passed (a full run of the
+    port's tests would otherwise leave gigabytes of checkpoints, CSVs and
+    corpora, and pytest keeps three runs). The test files that write
+    import it, as they import :func:`same_native_library`; module-scoped
+    directories go through :func:`drop_if_passed` when their module ends."""
+    path = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    failed = request.session.testsfailed
+    yield
+    if path is not None:
+        drop_if_passed(path, failed, request.session.testsfailed)
 
 
 class FakeFaceDet:

@@ -13,6 +13,8 @@ import sys
 import numpy as np
 import pytest
 
+from test_torch_decode import drop_passed_tmp_path  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytest.importorskip("cv2")

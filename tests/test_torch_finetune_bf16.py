@@ -48,6 +48,7 @@ from mimamo_tpu_torch.batchnorm import BatchNorm2d
 from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.runner import Mimamo
 
+from test_torch_decode import drop_passed_tmp_path  # noqa: F401
 from test_torch_runner import T, _configs
 from test_torch_serve import CLIP, S, SMALL_FLAGS, small_configs
 from test_torch_train import LR, _batch, _jax_steps, _train_specs

@@ -47,6 +47,9 @@ MODULES = (
     "mimamo_tpu_torch.bench._timing",
     "mimamo_tpu_torch.bench.layer1_probe",
     "mimamo_tpu_torch.bench.layer2_probe",
+    "mimamo_tpu_torch.bench.fft_invariance",
+    "mimamo_tpu_torch.bench.step_turns",
+    "mimamo_tpu_torch.bench.train_repeat",
     "mimamo_tpu_torch.corpus",
     "mimamo_tpu_torch.serve",
     "mimamo_tpu_torch.cli",

@@ -62,6 +62,8 @@ from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.data.eval import evaluate_affwild2
 from mimamo_tpu_torch.runner import Mimamo
 
+from test_torch_decode import (  # noqa: F401
+    drop_if_passed, drop_passed_tmp_path)
 from test_torch_train import _capture, _jax_grads
 
 WORLD = 2
@@ -87,9 +89,11 @@ def _jax_variables(cfg, seed):
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def ranks(request, tmp_path_factory):
     """The dry run on 2 CPU ranks, with JAX weights for the flagship and
-    the 2-layer variant: each rank's row and raw results."""
+    the 2-layer variant: each rank's row and raw results (the directory
+    goes when the module passed)."""
+    failed = request.session.testsfailed
     root = tmp_path_factory.mktemp("dryrun")
     variables = {}
     for seed, variant in enumerate(("flagship", "gru2")):
@@ -103,8 +107,9 @@ def ranks(tmp_path_factory):
     assert all(row is not None for row in rows), rows
     raw = [torch.load(str(root / f"rank{r}.pt"), weights_only=False)
            for r in range(WORLD)]
-    return {"rows": rows, "raw": raw, "variables": variables,
-            "data": dryrun.inputs(WORLD)}
+    yield {"rows": rows, "raw": raw, "variables": variables,
+           "data": dryrun.inputs(WORLD)}
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 @pytest.fixture(scope="module")
@@ -360,9 +365,11 @@ def _two_ranks(argv):
 
 
 @pytest.fixture(scope="module")
-def aff(tmp_path_factory):
+def aff(request, tmp_path_factory):
     """A synthetic Aff-Wild2 corpus of 3 videos (8 clips each) and a port
-    checkpoint of JAX weights at the CLI's small config."""
+    checkpoint of JAX weights at the CLI's small config (the directory goes
+    when the module passed)."""
+    failed = request.session.testsfailed
     root = tmp_path_factory.mktemp("aff")
     datasets.make_synthetic_affwild2(str(root / "aff"), n_videos=3,
                                      frames=17, size=16, seed=6)
@@ -376,8 +383,9 @@ def aff(tmp_path_factory):
     model.load_state_dict(weights.from_jax_variables(variables))
     ckpt = str(root / "ckpt")
     checkpoints.save(ckpt, train.create_train_state(model))
-    return {"root": str(root / "aff"), "ckpt": ckpt, "cfg": cfg,
-            "variables": variables, "model": model}
+    yield {"root": str(root / "aff"), "ckpt": ckpt, "cfg": cfg,
+           "variables": variables, "model": model}
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 def test_two_process_eval_matches_one_and_jax(aff, tmp_path, capsys):

@@ -30,7 +30,8 @@ from mimamo_tpu_torch import config as tc
 from mimamo_tpu_torch import serve, weights
 from mimamo_tpu_torch.io import decode
 from mimamo_tpu_torch.streaming import StreamingSession
-from test_torch_decode import same_native_library  # noqa: F401
+from test_torch_decode import (  # noqa: F401
+    drop_passed_tmp_path, same_native_library)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S, CLIP, STRIDE = 32, 8, 4

@@ -33,6 +33,8 @@ from mimamo_tpu import train as jtrain
 from mimamo_tpu_torch import checkpoints, cli, summary, weights
 from mimamo_tpu_torch.data import datasets
 
+from test_torch_decode import (  # noqa: F401
+    drop_if_passed, drop_passed_tmp_path)
 from test_torch_finetune_bf16 import two_intra_op_threads  # noqa: F401
 from test_torch_serve import CLIP, S, SMALL_FLAGS
 
@@ -41,11 +43,13 @@ FLAGS = SMALL_FLAGS + ["--streams", "micro", "--batch", "2", "--epochs",
 
 
 @pytest.fixture(scope="module")
-def corpus(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("flags") / "aff")
-    datasets.make_synthetic_affwild2(root, n_videos=2, frames=2 * CLIP + 5,
-                                     size=S, seed=6)
-    return root
+def corpus(request, tmp_path_factory):
+    failed = request.session.testsfailed
+    root = tmp_path_factory.mktemp("flags")
+    datasets.make_synthetic_affwild2(str(root / "aff"), n_videos=2,
+                                     frames=2 * CLIP + 5, size=S, seed=6)
+    yield str(root / "aff")
+    drop_if_passed(root, failed, request.session.testsfailed)
 
 
 def _train(main, corpus, capsys, extra):

@@ -25,6 +25,7 @@ from mimamo_tpu_torch.streaming import StreamingSession
 from mimamo_tpu_torch.temporal import TwoStreamRNN
 
 from test_torch_convert import _save, _shapes, _values
+from test_torch_decode import drop_passed_tmp_path  # noqa: F401
 from test_torch_train import _grads, _jax_grads, _jax_steps
 from test_torch_variants import S, T, configs, jax_variables, port
 
