@@ -208,7 +208,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from mimamo_tpu_torch import (StreamingSession, api, checkpoints, dryrun,
                               parallel, phase, preprocess, pyramid, summary,
-                              train, weights)
+                              tracing, train, weights)
 from mimamo_tpu_torch.backbone import (FoldedResNet50, ResNet50,
                                        fold_batchnorm)
 from mimamo_tpu_torch.bench import fft_invariance, layer1_probe, layer2_probe
@@ -657,63 +657,50 @@ def check_small_shapes(model: Mimamo) -> None:
         raise AssertionError(f"kernels at small shapes: {errs}")
 
 
+# stage_breakdown's keys and the program's spans (``tracing``) they read;
+# grayscale is the micro span less its FFT bands and phase kernel
+STAGE_SPANS = (("h2d_cast", "runner.h2d"), ("grayscale", "micro"),
+               ("fft_bands", "micro.bands"),
+               ("phase_kernel", "micro.phase_kernel"),
+               ("stem_kernel", "backbone.stem"), ("layer1", "backbone.layer1"),
+               ("layer2", "backbone.layer2"), ("layer3", "backbone.layer3"),
+               ("layer4", "backbone.layer4"), ("pool5", "backbone.pool"),
+               ("temporal", "temporal"))
+
+
 def stage_breakdown(model: Mimamo, clips: np.ndarray,
                     context: torch.Tensor = None) -> dict:
     """Device time (ms) of each stage of one forward over uint8 ``clips``
-    [B, T, S, S, 3]: the calls ``Mimamo.forward`` makes, with CUDA events
-    recorded between stages. With ``context`` ([B, 1, S, S, 3] on the card)
-    it is a streaming forward: the context frame is prepended for the micro
-    stream only, and the GRUs start from given carries."""
-    cfg, folded = model.config, model._backbone_folded()
-    b, t = clips.shape[:2]
-    marks = []
-
-    def mark(name):
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        marks.append((name, event))
-
-    with torch.no_grad():
-        carries = None
-        if context is not None:
-            carries = tuple(torch.zeros((b, cfg.temporal.gru_hidden),
-                                        device="cuda") for _ in range(2))
-        mark("start")
-        crops = torch.from_numpy(clips).cuda()
-        if context is not None:
-            crops = torch.cat([context, crops], dim=1)
-        crops = crops.float()
-        mark("h2d_cast")
-        gray = to_grayscale(crops)
-        mark("grayscale")
-        k, p = cfg.pyramid.orientations, cfg.phase.phase_size
-        bands = phase_bands(gray, cfg)
-        mark("fft_bands")
-        stacks = torch.empty((b, crops.shape[1] - 1, cfg.num_phase, p, p),
-                             device=gray.device)
-        phase_kernel.phase_diff_resize_scales(
-            bands, stacks, [s * k for s in range(len(bands))], False)
-        mark("phase_kernel")
-        own = crops[:, 1:] if context is not None else crops
-        stem = stem_kernel.stem_fused(own.reshape(b * t, S, S, 3),
-                                      *folded.stem, cfg.backbone.mean_rgb)
-        mark("stem_kernel")
-        x = folded._stage(stem.permute(0, 3, 1, 2), 1)
-        mark("layer1")
-        x = folded.run_layer2(x)
-        mark("layer2_kernel" if folded.layer2 is not None
-             else "layer2_cudnn")
-        x = folded._stage(x, 3)
-        mark("layer3")
-        x = folded._stage(x, 4)
-        mark("layer4")
-        emb = x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype).float()
-        mark("pool5")
-        model.temporal(stacks, emb.reshape(b, t, -1), carries)
-        mark("temporal")
-    torch.cuda.synchronize()
-    return {name: prev.elapsed_time(event)
-            for (_, prev), (name, event) in zip(marks, marks[1:])}
+    [B, T, S, S, 3], read from the program's spans (``tracing``, each
+    span's ``device_ms``): ``predict_clips``, or with ``context`` ([B, 1,
+    S, S, 3] on the card) a streaming forward (the context frame prepended
+    for the micro stream only, the GRUs from zero carries). Keys as in
+    ``STAGE_SPANS``; layer2 is ``layer2_kernel`` or ``layer2_cudnn`` by the
+    backbone's route."""
+    was = tracing.enabled()
+    tracing.enable()
+    try:
+        with torch.no_grad():
+            if context is None:
+                model.predict_clips(clips)
+            else:
+                carries = tuple(torch.zeros(
+                    (clips.shape[0], model.config.temporal.gru_hidden),
+                    device="cuda") for _ in range(2))
+                crops = torch.from_numpy(clips).cuda()
+                model(torch.cat([context, crops], 1), carries,
+                      include_first_pair=True)
+    finally:
+        tracing.enable(was)
+    records = tracing.collect()
+    ms = {r.name: r.device_ms for r in records
+          if r.request == records[-1].request}
+    layer2 = ("layer2_kernel" if model._backbone_folded().layer2 is not None
+              else "layer2_cudnn")
+    stages = {layer2 if key == "layer2" else key: ms[name]
+              for key, name in STAGE_SPANS}
+    stages["grayscale"] -= stages["fft_bands"] + stages["phase_kernel"]
+    return stages
 
 
 def clip_step_ms(model: Mimamo, clips: np.ndarray) -> list:

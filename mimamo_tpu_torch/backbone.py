@@ -54,7 +54,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from . import preprocess
+from . import preprocess, tracing
 from .batchnorm import BatchNorm2d, stats_frozen
 from .config import BackboneSpec
 from .kernels import layer2_kernel, stem_kernel
@@ -324,12 +324,21 @@ class FoldedResNet50:
             raise ValueError(
                 f"crops {tuple(crops.shape[1:3])}: this backbone was built "
                 f"for {self.crop_hw} crops (its stem route depends on it)")
-        x = self._stage(self.run_stem(crops), 1)         # NCHW view of NHWC
-        x = self._stage(self.run_layer2(x), 3)
-        x = self._stage(x, 4)
-        emb = x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)
-        emb = emb.to(torch.float32)
-        return emb, F.linear(emb, *self.fc)
+        dev = crops.device
+        with tracing.span("backbone.stem", dev):
+            x = self.run_stem(crops)                     # NCHW view of NHWC
+        with tracing.span("backbone.layer1", dev):
+            x = self._stage(x, 1)
+        with tracing.span("backbone.layer2", dev):
+            x = self.run_layer2(x)
+        with tracing.span("backbone.layer3", dev):
+            x = self._stage(x, 3)
+        with tracing.span("backbone.layer4", dev):
+            x = self._stage(x, 4)
+        with tracing.span("backbone.pool", dev):
+            emb = x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)
+            emb = emb.to(torch.float32)
+            return emb, F.linear(emb, *self.fc)
 
 
 # -- the reference's weight schema ---------------------------------------------

@@ -20,7 +20,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import phase, pyramid
+from .. import phase, pyramid, tracing
 from ..config import PhaseSpec, PyramidSpec
 from ._build import I, P, Kernel
 
@@ -237,8 +237,10 @@ def micro_motion_features_fused(frames: torch.Tensor,
     k, p = pyramid_spec.orientations, phase_spec.phase_size
     out = torch.empty((b, t - 1, pyramid_spec.height * k, p, p),
                       dtype=torch.float32, device=frames.device)
-    masks = pyramid.band_masks(pyramid_spec, frames.device)
-    bands = list(pyramid.bands(frames, pyramid_spec, masks))
-    return phase_diff_resize_scales(
-        bands, out, [s * k for s in range(len(bands))],
-        phase_spec.amplitude_weighting)
+    with tracing.span("micro.bands", frames.device):
+        masks = pyramid.band_masks(pyramid_spec, frames.device)
+        bands = list(pyramid.bands(frames, pyramid_spec, masks))
+    with tracing.span("micro.phase_kernel", frames.device):
+        return phase_diff_resize_scales(
+            bands, out, [s * k for s in range(len(bands))],
+            phase_spec.amplitude_weighting)

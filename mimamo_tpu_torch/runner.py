@@ -40,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import parallel, preprocess
+from . import parallel, preprocess, tracing
 from .backbone import FoldedResNet50, ResNet50, fold_batchnorm
 from .config import MimamoConfig
 from .kernels import phase_kernel
@@ -139,10 +139,11 @@ class Mimamo(nn.Module):
         :func:`interp_anchor_features` of those."""
         t = crops_rgb.shape[1]
         k = self.config.backbone.appearance_stride
-        if k == 1 or t == 1:
-            return self._embed_every(crops_rgb)
-        return interp_anchor_features(
-            self._embed_every(crops_rgb[:, ::k]), t, k)
+        with tracing.span("backbone", self.device):
+            if k == 1 or t == 1:
+                return self._embed_every(crops_rgb)
+            return interp_anchor_features(
+                self._embed_every(crops_rgb[:, ::k]), t, k)
 
     def _embed_every(self, crops_rgb: torch.Tensor) -> torch.Tensor:
         """``embed_frames`` of every frame, whatever the stride. A strided
@@ -180,21 +181,26 @@ class Mimamo(nn.Module):
         A micro-only model (``streams="micro"``) runs no backbone and a
         macro-only one no phase stage, so their kernels do not launch."""
         spec = self.config.temporal
-        crops_rgb = crops_rgb.to(self.device).to(torch.float32)
-        t = crops_rgb.shape[1] - int(include_first_pair)
-        phase_stacks = emb = None
-        if spec.use_micro:
-            phase_stacks = self._micro_motion(
-                preprocess.to_grayscale(crops_rgb))
-        if spec.use_macro:
-            if not include_first_pair:
-                emb = self.embed_frames(crops_rgb)
-            elif self.config.backbone.appearance_stride == 1:
-                emb = self.embed_frames(crops_rgb[:, 1:])
-            else:
-                emb = self.embed_frames(crops_rgb)[:, 1:]
-        return self.temporal(phase_stacks, emb, carries, first_pair_invalid,
-                             num_frames=t)
+        dev = self.device
+        with tracing.span("runner.forward", dev):
+            with tracing.span("runner.h2d", dev):
+                crops_rgb = crops_rgb.to(dev).to(torch.float32)
+            t = crops_rgb.shape[1] - int(include_first_pair)
+            phase_stacks = emb = None
+            if spec.use_micro:
+                with tracing.span("micro", dev):
+                    phase_stacks = self._micro_motion(
+                        preprocess.to_grayscale(crops_rgb))
+            if spec.use_macro:
+                if not include_first_pair:
+                    emb = self.embed_frames(crops_rgb)
+                elif self.config.backbone.appearance_stride == 1:
+                    emb = self.embed_frames(crops_rgb[:, 1:])
+                else:
+                    emb = self.embed_frames(crops_rgb)[:, 1:]
+            with tracing.span("temporal", dev):
+                return self.temporal(phase_stacks, emb, carries,
+                                     first_pair_invalid, num_frames=t)
 
     def _check_crops(self, crops_rgb, min_frames: int) -> torch.Tensor:
         if isinstance(crops_rgb, np.ndarray):
@@ -212,7 +218,8 @@ class Mimamo(nn.Module):
                       ) -> torch.Tensor:
         """[B, T, S, S, 3] aligned crops (numpy or tensor) -> [B, T, 2]
         float32 on the model's device."""
-        return self(self._check_crops(crops_rgb, 2))[0]
+        with tracing.span("runner.predict_clips", self.device):
+            return self(self._check_crops(crops_rgb, 2))[0]
 
     @torch.no_grad()
     def predict_batch(self, crops_rgb: Union[np.ndarray, torch.Tensor],

@@ -32,7 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import parallel
+from . import parallel, tracing
 from .parallel import DataGroup
 from .runner import Mimamo
 from .temporal import init_carries
@@ -122,37 +122,43 @@ class StreamingSession:
         """
         if not frames_by_slot:
             return {}
-        s = self.model.config.clip.crop_size
-        lo, hi = self._lo, self._hi
-        batch = np.zeros((hi - lo, self.chunk, s, s, 3), self.dtype)
-        for slot, f in frames_by_slot.items():
-            if not self._is_active(slot):
-                raise ValueError(f"slot {slot} is not active")
-            if f.shape != (self.chunk, s, s, 3):
-                raise ValueError(f"slot {slot}: expected "
-                                 f"{(self.chunk, s, s, 3)}, got {f.shape}")
-            if lo <= slot < hi:
-                batch[slot - lo] = f
         device = self.model.device
-        x = torch.from_numpy(batch).to(device)
-        fed = sorted(frames_by_slot)
-        fed_mask = torch.zeros(self.capacity, dtype=torch.bool)
-        fed_mask[fed] = True
-        fed_mask = fed_mask[lo:hi].to(device)
-        fresh = torch.from_numpy(self._fresh[lo:hi].copy()).to(device)
+        with tracing.span("streaming.feed", device):
+            with tracing.span("streaming.assemble", device):
+                s = self.model.config.clip.crop_size
+                lo, hi = self._lo, self._hi
+                batch = np.zeros((hi - lo, self.chunk, s, s, 3), self.dtype)
+                for slot, f in frames_by_slot.items():
+                    if not self._is_active(slot):
+                        raise ValueError(f"slot {slot} is not active")
+                    if f.shape != (self.chunk, s, s, 3):
+                        raise ValueError(f"slot {slot}: expected "
+                                         f"{(self.chunk, s, s, 3)}, got "
+                                         f"{f.shape}")
+                    if lo <= slot < hi:
+                        batch[slot - lo] = f
+                x = torch.from_numpy(batch).to(device)
+                fed = sorted(frames_by_slot)
+                fed_mask = torch.zeros(self.capacity, dtype=torch.bool)
+                fed_mask[fed] = True
+                fed_mask = fed_mask[lo:hi].to(device)
+                fresh = torch.from_numpy(self._fresh[lo:hi].copy()).to(device)
 
-        # Fresh slots use their own first frame as pair context.
-        context = torch.where(fresh[:, None, None, None, None],
-                              x[:, :1], self._context)
-        out, new_gru = self.model(torch.cat([context, x], dim=1), self._gru,
-                                  include_first_pair=True,
-                                  first_pair_invalid=fresh)
-        # Commit state only for the slots that were fed.
-        fed_slots = self._slot_mask(fed_mask)
-        self._gru = tuple(torch.where(fed_slots, n, o)
-                          for n, o in zip(new_gru, self._gru))
-        self._context = torch.where(fed_mask[:, None, None, None, None],
-                                    x[:, -1:], self._context)
-        self._fresh[fed] = False
-        out_np = parallel.all_gather(out, self.group).cpu().numpy()
-        return {slot: out_np[slot] for slot in frames_by_slot}
+            # Fresh slots use their own first frame as pair context.
+            context = torch.where(fresh[:, None, None, None, None],
+                                  x[:, :1], self._context)
+            out, new_gru = self.model(torch.cat([context, x], dim=1),
+                                      self._gru, include_first_pair=True,
+                                      first_pair_invalid=fresh)
+            # Commit state only for the slots that were fed.
+            with tracing.span("streaming.commit", device):
+                fed_slots = self._slot_mask(fed_mask)
+                self._gru = tuple(torch.where(fed_slots, n, o)
+                                  for n, o in zip(new_gru, self._gru))
+                self._context = torch.where(
+                    fed_mask[:, None, None, None, None], x[:, -1:],
+                    self._context)
+                self._fresh[fed] = False
+            with tracing.span("streaming.d2h", device):
+                out_np = parallel.all_gather(out, self.group).cpu().numpy()
+            return {slot: out_np[slot] for slot in frames_by_slot}

@@ -65,7 +65,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import batchnorm, checkpoints, parallel, preprocess, weights
+from . import batchnorm, checkpoints, parallel, preprocess, tracing, weights
 from .config import MimamoConfig, TrainSpec
 from .losses import ccc, ccc_loss
 from .parallel import DataGroup
@@ -329,6 +329,10 @@ def make_train_step(model: Mimamo, group: Optional[DataGroup] = None,
         parallel.broadcast_module(model, group)
 
     def train_step(state: TrainState, batch: Batch):
+        with tracing.span("train.step", model.device):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Batch):
         dev = model.device
         clips = _as_tensor(batch["clips"], dev)       # cast before any math
         if augmenting:
@@ -348,7 +352,7 @@ def make_train_step(model: Mimamo, group: Optional[DataGroup] = None,
                 "(fine-tuning must run the real backbone)")
         phase_stacks = None
         if cfg.temporal.use_micro:
-            with torch.no_grad():
+            with torch.no_grad(), tracing.span("micro", dev):
                 phase_stacks = model._micro_motion(
                     preprocess.to_grayscale(clips))
         b, t = clips.shape[:2]
@@ -369,20 +373,24 @@ def make_train_step(model: Mimamo, group: Optional[DataGroup] = None,
                     clips.reshape((b * t,) + clips.shape[2:]), cfg.backbone)
                 emb, _ = model.backbone(imgs, remat=spec.remat_backbone)
                 emb = emb.reshape(b, t, -1)
-            out, _ = model.temporal(phase_stacks, emb, num_frames=t)
-            loss, ccc_vec = _loss_and_metrics(
-                out, _as_tensor(batch["labels"], dev),
-                _as_tensor(batch["mask"], dev), spec, group)
-            state.optimizer.zero_grad(set_to_none=True)
-            if debug_nans:
-                _backward_checked(loss, model.named_parameters())
-            else:
-                loss.backward()
-        parallel.average_gradients(
-            (p for g in state.optimizer.param_groups for p in g["params"]),
-            group)
-        state.optimizer.step()
-        state.scheduler.step()
+            with tracing.span("temporal", dev):
+                out, _ = model.temporal(phase_stacks, emb, num_frames=t)
+            with tracing.span("train.loss", dev):
+                loss, ccc_vec = _loss_and_metrics(
+                    out, _as_tensor(batch["labels"], dev),
+                    _as_tensor(batch["mask"], dev), spec, group)
+            with tracing.span("train.backward", dev):
+                state.optimizer.zero_grad(set_to_none=True)
+                if debug_nans:
+                    _backward_checked(loss, model.named_parameters())
+                else:
+                    loss.backward()
+        with tracing.span("train.optimizer", dev):
+            parallel.average_gradients(
+                (p for g in state.optimizer.param_groups for p in g["params"]),
+                group)
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         if not freeze:
             model._folded = None         # backbone weights moved: refold

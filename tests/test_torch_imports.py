@@ -57,6 +57,7 @@ MODULES = (
     "mimamo_tpu_torch.parallel",
     "mimamo_tpu_torch.dryrun",
     "mimamo_tpu_torch.summary",
+    "mimamo_tpu_torch.tracing",
     "mimamo_tpu_torch.examples",
     "mimamo_tpu_torch.examples.demo",
     "mimamo_tpu_torch.examples.serve_client",
