@@ -15,6 +15,14 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      and, where PyTorch computes the same function, the library call (a
      yardstick only; the port never calls it). A time is the median of 5
      event-timed batches of 10 back-to-back calls, after 2 warm-up calls.
+     ``epilogue``: the epilogue of the backbone's cuDNN convs at every
+     launch of one backbone call, bf16 at B x T frames and fp32 at 4 x T
+     (the benchmark's batches): each launch ``torch.equal`` to its plain
+     version and to PyTorch's bias add, relu and residual add on the same
+     raw conv output (and no element whose bits differ), each block to
+     ``bottleneck_library``; each launch's time, byte bound and PyTorch's
+     time, and their sums over a call (record ``bottleneck_epilogue`` at
+     layer1's conv3);
      ``fft_invariance``: the phase stage gives a frame the same bits
      whatever batch it arrives in (``bench/fft_invariance.py``: 384 seeded
      crops, each of 3 frames at 4 positions of batches of 1 to 384
@@ -25,7 +33,8 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      weights from a seed, checks shape and finiteness, and checks that
      every kernel was launched on that run (phase 1: all scales in one
      launch; stem 1; layer2 4 per forward: one launch per bottleneck
-     block);
+     block; the epilogue 36: three per block of layers 1, 3 and 4; 48 in
+     fp32, 39 under the torchvision placement);
   4. drives a ``StreamingSession`` at capacity 8 x chunk 16 (uint8): 8
      streams fed 3 chunks equal ``predict_clips`` of the same clips; a
      slot removed, added again and fed starts fresh; a slot left out of a
@@ -222,7 +231,8 @@ from mimamo_tpu_torch.config import (BackboneSpec, ClipSpec, MimamoConfig,
                                      PyramidSpec, TemporalSpec, TrainSpec)
 from mimamo_tpu_torch.data import datasets
 from mimamo_tpu_torch.data.eval import evaluate_affwild2
-from mimamo_tpu_torch.kernels import (_build, dots_block, layer1_dots_kernel,
+from mimamo_tpu_torch.kernels import (_build, bottleneck_epilogue,
+                                      dots_block, layer1_dots_kernel,
                                       layer2_dots_kernel, layer2_kernel,
                                       phase_kernel, stem_kernel)
 from mimamo_tpu_torch.kernels.layer2_kernel import C_IN, OUT_W, WIDTH
@@ -576,7 +586,7 @@ def check_layer2(crops: torch.Tensor, model: Mimamo,
     def library():
         v = x.permute(0, 3, 1, 2)
         for blk in lib:
-            v = folded._bottleneck(v, blk)
+            v = bottleneck_epilogue.bottleneck_library(v, blk)
         return v
 
     # every layer2 conv writes the output grid (block 0 strides its 1x1s)
@@ -614,6 +624,142 @@ def layer2_byte_floors(pixels: int) -> dict:
     return {"unfused_13_launches": unfused / PEAK_BYTES_PER_S * 1e3,
             "fused_4_launches": fused / PEAK_BYTES_PER_S * 1e3,
             "unfused_gb": unfused / 1e9, "fused_gb": fused / 1e9}
+
+
+# frames of the benchmark's clip call (bf16) and train step (fp32)
+EPILOGUE_FRAMES = {"bfloat16": B * T, "float32": 4 * T}
+
+
+def epilogue_launches(fp32: bool = False) -> int:
+    """Epilogue launches of one backbone call: three a bottleneck block run
+    as cuDNN convs (layers 1, 3 and 4 in bf16; layers 1-4 in fp32)."""
+    return 3 * (16 if fp32 else 12)
+
+
+def backbone_of(state: dict, dtype: str, device: str,
+                stride_in_1x1: bool = True) -> FoldedResNet50:
+    """``FoldedResNet50`` of the backbone weights in ``state`` (the keys of
+    both stride placements are the same) on ``device``."""
+    spec = BackboneSpec(input_size=2 * S, dtype=dtype)
+    model = ResNet50(spec, stride_in_1x1=stride_in_1x1)
+    model.load_state_dict({k[len("backbone."):]: v for k, v in state.items()
+                           if k.startswith("backbone.")})
+    return FoldedResNet50(fold_batchnorm(model.to(device)), spec,
+                          stride_in_1x1=stride_in_1x1)
+
+
+def epilogue_launch(y, bias, args) -> dict:
+    """One epilogue on the raw conv output ``y`` (``args``: the residual,
+    and the projection's bias): the kernel against its plain version and
+    against PyTorch's ops on the same output, as ``F.conv2d`` with a bias
+    and the block compose them (``torch.equal``; elements whose bits
+    differ, :func:`errors`); the bytes it moves, its byte bound, the
+    kernel's and PyTorch's times."""
+    def library(v):
+        v = v.add_(bias.reshape(1, -1, 1, 1))
+        if not args:
+            return torch.relu(v)
+        r = args[0]
+        if len(args) > 1:
+            r = r.clone().add_(args[1].reshape(1, -1, 1, 1))
+        return torch.relu(v + r)
+
+    got = bottleneck_epilogue.epilogue(y.clone(), bias, *args)
+    plain = bottleneck_epilogue.epilogue_plain(y, bias, *args)
+    lib = library(y.clone())
+    ints = torch.int16 if y.dtype == torch.bfloat16 else torch.int32
+    nbytes = (y.numel() * (2 + bool(args)) * y.element_size()
+              + bias.numel() * bias.element_size() * len(args or (1,)))
+    row = {"shape": list(y.shape), "residual": len(args),
+           "equal_plain": torch.equal(got, plain),
+           "equal_library": torch.equal(got, lib),
+           "bits_differ": int((got.view(ints) != lib.view(ints)).sum()),
+           "finite": bool(torch.isfinite(got).all()), **errors(got, plain),
+           "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    del got, plain, lib
+    row["ms"] = time_ms(lambda: bottleneck_epilogue.epilogue(y, bias, *args))
+    row["library_ms"] = time_ms(lambda: library(y))
+    return row
+
+
+def check_epilogue(state: dict, line: str) -> dict:
+    """The epilogue kernel at every launch of one backbone call, bf16 at
+    B x T frames and fp32 at 4 x T (the benchmark's batches), on the stage
+    inputs of seeded crops: each launch against its plain version and
+    against PyTorch's ops on the same raw conv output (``torch.equal``
+    and elements whose bits differ), each block against
+    ``bottleneck_library`` (``torch.equal``); each launch's time, byte
+    bound and PyTorch's time, summed per call; the ptxas report. Returns
+    the record at layer1's conv3 in bf16 (block 1: y and the block's input
+    read, y written), with the plain version's time."""
+    rng = np.random.default_rng(SEED + 70)
+    report, rec = {"card": line}, None
+    log = _build.build().with_suffix(".log").read_text()
+    report["ptxas"] = ptxas_report(log, "epilogue_kernel")
+    for dtype, frames in EPILOGUE_FRAMES.items():
+        folded = backbone_of(state, dtype, "cuda")
+        x = folded.run_stem(torch.from_numpy(rng.integers(
+            0, 256, (frames, S, S, 3), dtype=np.uint8)).cuda().float())
+        rows, blocks_equal = [], True
+        for stage in (1, 2, 3, 4):
+            if stage not in folded.stages:
+                x = folded.run_layer2(x)
+                continue
+            for b, blk in enumerate(folded.stages[stage]):
+                conv = bottleneck_epilogue._conv
+                y1 = conv(x, blk["conv1"], bias=False)
+                rows.append(epilogue_launch(y1, blk["conv1"][1], ()))
+                y2 = conv(bottleneck_epilogue.epilogue(y1, blk["conv1"][1]),
+                          blk["conv2"], bias=False)
+                rows.append(epilogue_launch(y2, blk["conv2"][1], ()))
+                y3 = conv(bottleneck_epilogue.epilogue(y2, blk["conv2"][1]),
+                          blk["conv3"], bias=False)
+                args = ((conv(x, blk["downsample"], bias=False),
+                         blk["downsample"][1]) if "downsample" in blk
+                        else (x,))
+                rows.append(epilogue_launch(y3, blk["conv3"][1], args))
+                if stage == 1 and b == 1 and dtype == "bfloat16":
+                    row = rows[-1]
+                    rec = record(
+                        "bottleneck_epilogue",
+                        "mimamo_tpu_torch/csrc/bottleneck_epilogue.cu",
+                        "none: PyTorch's bias add, relu and residual add "
+                        "after cuDNN (XLA fused them into its convs)",
+                        {k: row[k] for k in ("max_rel_err", "max_abs_err")},
+                        {"tol_abs": 0.0}, row["ms"],
+                        time_ms(lambda: bottleneck_epilogue.epilogue_plain(
+                            y3, blk["conv3"][1], x), batch=2),
+                        row["bytes"], 0.0, row["library_ms"])
+                del y1, y2, y3, args
+                out = folded._bottleneck(x, blk)
+                want = bottleneck_epilogue.bottleneck_library(x, blk)
+                blocks_equal &= torch.equal(out, want)
+                x = want
+                del out
+        report[dtype] = {
+            "frames": frames, "launches": len(rows),
+            "all_equal_plain": all(r["equal_plain"] for r in rows),
+            "all_equal_library": all(r["equal_library"] for r in rows),
+            "bits_differ": sum(r["bits_differ"] for r in rows),
+            "all_finite": all(r["finite"] for r in rows),
+            "blocks_equal_library": bool(blocks_equal),
+            "call_ms": sum(r["ms"] for r in rows),
+            "call_bound_ms": sum(r["bound_ms"] for r in rows),
+            "call_library_ms": sum(r["library_ms"] for r in rows),
+            "rows": rows}
+        del folded, x
+        torch.cuda.empty_cache()
+    print(json.dumps({"epilogue": report}), flush=True)
+    bad = [d for d in EPILOGUE_FRAMES
+           if not (report[d]["all_equal_plain"]
+                   and report[d]["all_equal_library"]
+                   and report[d]["blocks_equal_library"]
+                   and report[d]["all_finite"]
+                   and report[d]["launches"]
+                   == epilogue_launches(d == "float32"))]
+    if bad or rec["max_abs_err"] != 0:
+        raise AssertionError(f"epilogue kernel: {bad}, {rec}")
+    return rec
 
 
 def check_small_shapes(model: Mimamo) -> None:
@@ -725,7 +871,8 @@ KERNELS = {"phase_diff_resize": phase_kernel.KERNEL,
            "layer2_fused": layer2_kernel.KERNEL,
            "stem_fused[f32]": stem_kernel.KERNEL_F32,
            "layer1_dots": layer1_dots_kernel.KERNEL,
-           "layer2_g4_dots": layer2_dots_kernel.KERNEL}
+           "layer2_g4_dots": layer2_dots_kernel.KERNEL,
+           "bottleneck_epilogue": bottleneck_epilogue.KERNEL}
 
 
 def expected_launches(forwards: int = 1, classify: int = 0,
@@ -734,13 +881,15 @@ def expected_launches(forwards: int = 1, classify: int = 0,
     kernel takes all scales in one launch), and ``classify`` backbone-only
     calls (``classify_frames``: the backbone, no phase). A bf16 backbone
     launches the bf16 stem and layer2 (one launch per bottleneck block);
-    an fp32 one the fp32 stem, with layer2 on cuDNN."""
+    an fp32 one the fp32 stem, with layer2 on cuDNN; either the epilogue
+    three times a block on cuDNN (:func:`epilogue_launches`)."""
     backbone = forwards + classify
     return {"phase_diff_resize": forwards,
             "stem_fused": 0 if fp32 else backbone,
             "layer2_fused": 0 if fp32 else 4 * backbone,
             "stem_fused[f32]": backbone if fp32 else 0,
-            "layer1_dots": 0, "layer2_g4_dots": 0}
+            "layer1_dots": 0, "layer2_g4_dots": 0,
+            "bottleneck_epilogue": epilogue_launches(fp32) * backbone}
 
 
 def counted(fn, expected: dict = None):
@@ -2210,7 +2359,8 @@ def variant_config(name: str, dtype: str) -> MimamoConfig:
 def variant_launches(cfg: MimamoConfig) -> dict:
     """Launches of one forward of ``cfg``: the phase kernel where the micro
     stream runs; where the macro stream runs, the stem kernel of the dtype
-    when the backbone input is twice the crop, and layer2's 4 in bf16."""
+    when the backbone input is twice the crop, layer2's 4 in bf16 and the
+    epilogues of one backbone call."""
     spec, bb = cfg.temporal, cfg.backbone
     fp32 = bb.dtype == "float32"
     stem = spec.use_macro and bb.input_size == 2 * S
@@ -2218,7 +2368,9 @@ def variant_launches(cfg: MimamoConfig) -> dict:
             "stem_fused": int(stem and not fp32),
             "layer2_fused": 4 * int(spec.use_macro and not fp32),
             "stem_fused[f32]": int(stem and fp32),
-            "layer1_dots": 0, "layer2_g4_dots": 0}
+            "layer1_dots": 0, "layer2_g4_dots": 0,
+            "bottleneck_epilogue": epilogue_launches(fp32)
+            * int(spec.use_macro)}
 
 
 class FramesSeen:
@@ -2931,13 +3083,8 @@ PYRAMID_CARD_CPU_TOL = 1e-5  # bands, high, low: max |d| / max |CPU|
 
 def stride_backbone(state: dict, dtype: str, device: str):
     """``FoldedResNet50(stride_in_1x1=False)`` of the backbone weights in
-    ``state`` (the keys of both placements are the same) on ``device``."""
-    spec = BackboneSpec(input_size=2 * S, dtype=dtype)
-    model = ResNet50(spec, stride_in_1x1=False)
-    model.load_state_dict({k[len("backbone."):]: v for k, v in state.items()
-                           if k.startswith("backbone.")})
-    return FoldedResNet50(fold_batchnorm(model.to(device)), spec,
-                          stride_in_1x1=False)
+    ``state`` on ``device``."""
+    return backbone_of(state, dtype, device, stride_in_1x1=False)
 
 
 def a16b_stride(state: dict, line: str) -> tuple:
@@ -2961,7 +3108,8 @@ def a16b_stride(state: dict, line: str) -> tuple:
         folded(crops)                                        # warm-up
         torch.cuda.synchronize()
         (emb, _), launches = counted(lambda: folded(crops), dict(
-            expected_launches(0), stem_fused=1, layer2_fused=3))
+            expected_launches(0), stem_fused=1, layer2_fused=3,
+            bottleneck_epilogue=epilogue_launches() + 3))
         report["finite"] = bool(torch.isfinite(emb).all())
         report["backbone_ms"] = time_ms(lambda: folded(crops), iters=3,
                                         batch=2)
@@ -2983,7 +3131,7 @@ def a16b_stride(state: dict, line: str) -> tuple:
         def library():
             v = x.permute(0, 3, 1, 2)
             for blk in lib:
-                v = folded._bottleneck(v, blk)
+                v = bottleneck_epilogue.bottleneck_library(v, blk)
             return v
 
         pixels = got.shape[0] * got.shape[1] * got.shape[2]
@@ -3007,8 +3155,9 @@ def a16b_stride(state: dict, line: str) -> tuple:
         small = crops[:A16B_CLIP_T]
         card32 = stride_backbone(state, "float32", "cuda")
         (card_emb, card_logits), report["launches_fp32"] = counted(
-            lambda: card32(small), dict(expected_launches(0),
-                                        **{"stem_fused[f32]": 1}))
+            lambda: card32(small), dict(
+                expected_launches(0), **{"stem_fused[f32]": 1},
+                bottleneck_epilogue=epilogue_launches(fp32=True)))
         cpu_emb, cpu_logits = stride_backbone(state, "float32", "cpu")(
             small.cpu())
         report["fp32_card_vs_cpu_emb_max_rel"] = max_rel(card_emb.cpu(),
@@ -3250,7 +3399,8 @@ def main() -> int:
         check_fft_invariance(cfg, line)
         recs = [check_phase(to_grayscale(crops), cfg),
                 check_stem(crops.reshape(B * T, S, S, 3), model),
-                check_layer2(crops.reshape(B * T, S, S, 3), model)]
+                check_layer2(crops.reshape(B * T, S, S, 3), model),
+                check_epilogue(state, line)]
     del crops
     torch.cuda.empty_cache()
 

@@ -20,7 +20,10 @@ Inference runs the BN-folded form, :class:`FoldedResNet50`, built by
     the JAX package runs it (both of its fused stems take only the exact
     2x);
   * layer1, layer3, layer4: ``F.conv2d`` in channels_last, in the
-    configured dtype (XLA lowered these outside any Pallas kernel);
+    configured dtype (XLA lowered these outside any Pallas kernel); on the
+    card each conv runs on cuDNN without its bias, and ``kernels.
+    bottleneck_epilogue`` adds the bias (and the residual) and applies
+    relu in one pass, bit for bit PyTorch's own ops;
   * layer2: ``kernels.layer2_kernel`` in bf16 (under the 3x3 placement
     block 0 as ``F.conv2d``, blocks 1-3 through the kernel: it computes
     block 0 in the 1x1 placement only); ``F.conv2d`` like the other stages
@@ -57,7 +60,7 @@ from torch import nn
 from . import preprocess, tracing
 from .batchnorm import BatchNorm2d, stats_frozen
 from .config import BackboneSpec
-from .kernels import layer2_kernel, stem_kernel
+from .kernels import bottleneck_epilogue, layer2_kernel, stem_kernel
 from .preprocess import work_dtype
 
 STAGE_SIZES = (3, 4, 6, 3)            # ResNet-50
@@ -268,16 +271,7 @@ class FoldedResNet50:
             self.stages[stage] = blocks
         self.fc = folded["fc"]
 
-    @staticmethod
-    def _bottleneck(x: torch.Tensor, blk) -> torch.Tensor:
-        def conv(v, p):
-            w, b, stride, pad = p
-            return F.conv2d(v, w, b, stride=stride, padding=pad)
-
-        res = conv(x, blk["downsample"]) if "downsample" in blk else x
-        y = F.relu(conv(x, blk["conv1"]))
-        y = F.relu(conv(y, blk["conv2"]))
-        return F.relu(conv(y, blk["conv3"]) + res)
+    _bottleneck = staticmethod(bottleneck_epilogue.bottleneck)
 
     def _stage(self, x: torch.Tensor, stage: int) -> torch.Tensor:
         for blk in self.stages[stage]:

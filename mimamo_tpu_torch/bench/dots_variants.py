@@ -114,10 +114,10 @@ def build(variants: dict, src: Path, out: Path) -> tuple:
     return lib, logs
 
 
-def ptxas_report(log: str) -> list:
+def ptxas_report(log: str, match: str = "dots") -> list:
     """(kernel, registers, spill stores, spill loads, serialized) of each
-    dots kernel in a ptxas report; serialized: ptxas made its wgmma wait
-    one for another (C7510-C7520 performance notes)."""
+    kernel whose name holds ``match`` in a ptxas report; serialized: ptxas
+    made its wgmma wait one for another (C7510-C7520 performance notes)."""
     rows, kernel, spills = [], None, (0, 0)
     serialized = {m.group(1) for m in re.finditer(
         r"wgmma.mma_async instructions are serialized.*function '(\w+)'",
@@ -131,7 +131,7 @@ def ptxas_report(log: str) -> list:
         if m and kernel:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and kernel and "dots" in kernel:
+        if m and kernel and match in kernel:
             rows.append((kernel, int(m.group(1)), *spills,
                          kernel in serialized))
     return rows

@@ -4,8 +4,9 @@ Port of ``bench/layer1_probe.py``. cuDNN's layer1 is the largest stage of
 the port's clip steps. Three measurements:
 
   1. **The library layer1 stage**: three BN-folded bottlenecks of
-     ``FoldedResNet50._bottleneck`` (cuDNN bf16, channels_last) on seeded
-     weights, reported at the analytic 513 GFLOP per 384 frames.
+     ``bottleneck_epilogue.bottleneck_library`` (cuDNN bf16, channels_last,
+     PyTorch's bias add, relu and residual add) on seeded weights,
+     reported at the analytic 513 GFLOP per 384 frames.
   2. **The layer1_dots kernel** (``kernels/layer1_dots_kernel.py``): the dot
      sequence of a fused layer1 with no tap shifts or masks, a lower bound
      on any real kernel of that shape, with its executed, needed and
@@ -34,10 +35,10 @@ import sys
 
 import torch
 
-from mimamo_tpu_torch.backbone import FoldedResNet50
 from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S,
                                             PEAK_BYTES_PER_S, card, device,
                                             time_ms)
+from mimamo_tpu_torch.kernels.bottleneck_epilogue import bottleneck_library
 from mimamo_tpu_torch.kernels import layer1_dots_kernel as l1
 from mimamo_tpu_torch.kernels.layer1_dots_kernel import (BLOCKS, C_IN, IN_HW,
                                                          OUT_W, WIDTH)
@@ -86,10 +87,11 @@ def stage_blocks(seed: int, dev) -> list:
 
 def library_layer1(x: torch.Tensor, blocks: list) -> torch.Tensor:
     """``[N, 56, 56, 64]`` NHWC -> NCHW view of the ``[N, 56, 56, 256]``
-    layer1 output, through the backbone's cuDNN bottlenecks."""
+    layer1 output, through the backbone's bottlenecks as PyTorch's own ops
+    (cuDNN convs with their biases, relu, residual add)."""
     v = x.permute(0, 3, 1, 2)
     for blk in blocks:
-        v = FoldedResNet50._bottleneck(v, blk)
+        v = bottleneck_library(v, blk)
     return v
 
 

@@ -39,9 +39,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from mimamo_tpu_torch.backbone import FoldedResNet50
 from mimamo_tpu_torch.bench._timing import (PEAK_BF16_FLOP_PER_S, card,
                                             device, max_rel, time_ms)
+from mimamo_tpu_torch.kernels.bottleneck_epilogue import bottleneck_library
 from mimamo_tpu_torch.kernels import layer2_dots_kernel as l2d
 from mimamo_tpu_torch.kernels import layer2_kernel as l2
 from mimamo_tpu_torch.kernels.dots_block import DotsBlock
@@ -155,10 +155,11 @@ def library_blocks(raw, dev) -> list:
 
 def library_layer2(x: torch.Tensor, blocks: list) -> torch.Tensor:
     """``[N, 56, 56, 256]`` NHWC -> NCHW view of ``[N, 28, 28, 512]``,
-    through the backbone's cuDNN bottlenecks."""
+    through the backbone's bottlenecks as PyTorch's own ops (cuDNN convs
+    with their biases, relu, residual add)."""
     v = x.permute(0, 3, 1, 2)
     for blk in blocks:
-        v = FoldedResNet50._bottleneck(v, blk)
+        v = bottleneck_library(v, blk)
     return v
 
 

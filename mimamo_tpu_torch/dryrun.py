@@ -60,7 +60,8 @@ from . import parallel, train, weights
 from .config import (BackboneSpec, ClipSpec, MimamoConfig, PhaseSpec,
                      PyramidSpec, TemporalSpec, TrainSpec)
 from .data.eval import ccc_np
-from .kernels import layer2_kernel, phase_kernel, stem_kernel
+from .kernels import (bottleneck_epilogue, layer2_kernel, phase_kernel,
+                      stem_kernel)
 from .runner import Mimamo
 from .streaming import StreamingSession
 
@@ -94,7 +95,8 @@ TIMEOUT_S = 600.0
 KERNELS = {"phase_diff_resize": phase_kernel.KERNEL,
            "stem_fused": stem_kernel.KERNEL,
            "layer2_fused": layer2_kernel.KERNEL,
-           "stem_fused[f32]": stem_kernel.KERNEL_F32}
+           "stem_fused[f32]": stem_kernel.KERNEL_F32,
+           "bottleneck_epilogue": bottleneck_epilogue.KERNEL}
 
 
 def config(variant: str = "flagship", step: str = "time") -> MimamoConfig:
