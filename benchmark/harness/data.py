@@ -17,11 +17,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..reference.mimamo import schema
+from .. import reference
 
 # Each purpose's stream of draws; the numbers are part of what a seed
 # means, so a purpose keeps its number and a new one takes a new number.
 PURPOSES = {"weights": 0, "crops": 1, "labels": 4, "order": 5}
+
+# The leaf kinds of a reference's ``schema`` that ``make_weights`` draws:
+# from the normal draw, from the uniform draw, and BatchNorm's counter.
+NORMAL = ("conv", "bn_weight", "bn_bias", "bn_mean")
+UNIFORM = ("linear", "gru", "bn_var")
+DRAWN = NORMAL + UNIFORM + ("bn_count",)
 
 
 def generator(seed: int, purpose: str, device) -> torch.Generator:
@@ -39,14 +45,17 @@ def rng(seed: int, purpose: str) -> np.random.Generator:
 
 @torch.no_grad()
 def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The model's ``state_dict`` (``reference.mimamo.schema``) drawn from
-    the seed: one normal and one uniform draw for the whole model."""
-    leaves = schema(cfg)
+    """The model's ``state_dict`` (the ``schema`` of the configuration's
+    reference) drawn from the seed: one normal and one uniform draw for
+    the whole model. A leaf of a kind not in ``DRAWN`` raises."""
+    leaves = reference.for_config(cfg).schema(cfg)
+    for name, _, kind, _ in leaves:
+        if kind not in DRAWN:
+            raise ValueError(f"leaf {name!r} is of kind {kind!r}, which "
+                             f"make_weights does not draw; kinds: {DRAWN}")
     g = generator(seed, "weights", device)
-    normal = {"conv", "bn_weight", "bn_bias", "bn_mean"}
-    n_normal = sum(math.prod(s) for _, s, k, _ in leaves if k in normal)
-    n_uniform = sum(math.prod(s) for _, s, k, _ in leaves
-                    if k in ("linear", "gru", "bn_var"))
+    n_normal = sum(math.prod(s) for _, s, k, _ in leaves if k in NORMAL)
+    n_uniform = sum(math.prod(s) for _, s, k, _ in leaves if k in UNIFORM)
     z = torch.randn(n_normal, generator=g, device=device)
     u = torch.rand(n_uniform, generator=g, device=device)
     out, iz, iu = {}, 0, 0
@@ -55,7 +64,7 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         if kind == "bn_count":
             out[name] = torch.zeros((), dtype=torch.long, device=device)
             continue
-        if kind in normal:
+        if kind in NORMAL:
             x = z[iz:iz + n].view(shape)
             iz += n
             out[name] = {"conv": x / math.sqrt(fan), "bn_weight": 1 + 0.1 * x,

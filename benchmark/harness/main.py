@@ -19,12 +19,13 @@ import json
 import subprocess
 import sys
 import time
+from types import ModuleType
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from . import data, judge, spec, trace
-from ..reference.mimamo import Reference
+from .. import reference
 
 
 @dataclasses.dataclass
@@ -38,6 +39,7 @@ class Run:
     device: torch.device
     mix: dict                        # the traffic mix's parameters
     config: dict                     # the configuration as it is run
+    reference: ModuleType = None     # the configuration's plain reference
     state: Dict[str, torch.Tensor] = None   # the weights both sides get
     model: Any = None                # the port's Mimamo
     program: Any = None              # what the kind drives (session, step)
@@ -74,6 +76,8 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
               device=device, mix=mix or cell.mix,
               config=config or cell.config)
     kind = spec.traffic_kind(cell.kind)
+    run.reference = reference.for_config(run.config)
+    run.reference.check_supported(run.config)
     run.state = data.make_weights(run.config, seed, device)
     kind.setup(run)
     readers = {m["name"]: spec.metric_reader(m["name"])
@@ -115,7 +119,7 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    ref = Reference(run.config, run.state, device)
+    ref = run.reference.Reference(run.config, run.state, device)
     want = kind.expected(run, ref)
     numbers = kind.numbers(observed, want)
     checks = judge.judge(numbers, cell.limits)

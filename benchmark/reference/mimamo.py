@@ -107,10 +107,40 @@ def schema(cfg: dict) -> List[Tuple[str, Tuple[int, ...], str, int]]:
     return out
 
 
+# The keys of each section of a configuration that this reference
+# computes (``epochs``, ``seed``, ``batch_size`` and ``remat_backbone``
+# leave its numbers as they are; ``fps`` is metadata).
+KEYS = {
+    "pyramid": {"height", "orientations", "input_size", "complex_factor"},
+    "phase": {"phase_size", "amplitude_weighting"},
+    "backbone": {"input_size", "feature_dim", "num_classes", "mean_rgb",
+                 "channel_order", "dtype", "appearance_stride"},
+    "temporal": {"streams", "micro_cnn_features", "micro_embed_dim",
+                 "macro_embed_dim", "gru_hidden", "gru_layers",
+                 "fusion_hidden", "num_outputs", "output_activation",
+                 "snippet_len"},
+    "clip": {"clip_len", "stride", "crop_size", "fps"},
+    "train": {"learning_rate", "weight_decay", "lr_schedule", "warmup_steps",
+              "batch_size", "epochs", "loss", "mse_weight", "augment",
+              "brightness_jitter", "loss_axis", "seed", "freeze_backbone",
+              "remat_backbone"},
+}
+
+
 def check_supported(cfg: dict) -> None:
     """The reference computes the variant the benchmark's configurations
     state: both streams, one GRU layer, no snippet pooling, every frame
-    through the backbone at exactly twice the crop."""
+    through the backbone at exactly twice the crop; and no key of a
+    section that it does not know (``KEYS``): a configuration with one is
+    another model, and names a reference of its own."""
+    for section, known in KEYS.items():
+        unknown = sorted(set(cfg.get(section, {})) - known)
+        if unknown:
+            raise ValueError(
+                f"{section}: the reference 'mimamo' does not compute "
+                f"{unknown}; name a reference of the configuration's own "
+                f"(\"reference\": \"<module>\" in its file, a module of "
+                f"benchmark/reference/)")
     t, b = cfg["temporal"], cfg["backbone"]
     size = cfg["pyramid"]["input_size"]
     if (t["streams"] != "both" or t["gru_layers"] != 1
@@ -214,9 +244,11 @@ class Reference:
     in fp32), ``"fp8"`` (the backbone's convs on float8 inputs and
     weights) or ``"tf32"`` (every fp32 matmul and conv in TF32)."""
 
+    check_supported = staticmethod(check_supported)
+
     def __init__(self, cfg: dict, state: Dict[str, torch.Tensor],
                  device, low: Optional[str] = None):
-        check_supported(cfg)
+        self.check_supported(cfg)
         if low not in (None, "bf16", "fp8", "tf32"):
             raise ValueError(f"unknown precision {low!r}")
         self.cfg = cfg
@@ -240,7 +272,7 @@ class Reference:
         if self.cfg["backbone"]["dtype"] != "bfloat16":
             raise ValueError("the stated-precision yardstick is for a bf16 "
                              "backbone")
-        return Reference(self.cfg, self.p, self.device, low="bf16")
+        return type(self)(self.cfg, self.p, self.device, low="bf16")
 
     # backbone ----------------------------------------------------------------
 

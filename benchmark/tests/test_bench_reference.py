@@ -2,6 +2,7 @@
 lower precision in the program's place failing the same comparison."""
 
 import ast
+import json
 import time
 from pathlib import Path
 
@@ -9,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+import benchmark.reference
 from benchmark.harness import data, main, program, spec
 from benchmark.reference import mimamo as reference
 
-from .conftest import tiny
+from .conftest import tiny, tiny_config
 
 REF_DIR = Path(reference.__file__).resolve().parent
 
@@ -30,13 +32,67 @@ def test_reference_imports_nothing_of_the_program():
                                                "mimamo_tpu", "flax"), path
 
 
-def test_schema_is_the_ports_state_dict():
-    cell = spec.load_cell("fp32-train")
-    config, _ = tiny(cell)
+CONFIGS = {c["name"]: c["file"] for c in spec.benchmark_file()["configs"]}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_schema_is_the_ports_state_dict(name):
+    """Each configuration's reference, found by its file, gives the
+    port's ``state_dict``: the same names and shapes."""
+    config = tiny_config(json.loads((spec.ROOT / CONFIGS[name]).read_text()))
+    schema = benchmark.reference.for_config(config).schema(config)
     model = program.build_model(config, data.make_weights(config, 3, "cpu"),
                                 "cpu")
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    assert {n: s for n, s, _, _ in reference.schema(config)} == want
+    assert {n: s for n, s, _, _ in schema} == want
+
+
+def test_every_reference_defines_the_interface():
+    for name in benchmark.reference.names():
+        module = benchmark.reference.for_config({"reference": name})
+        for attr in ("schema", "check_supported", "Reference",
+                     "train_steps", "FAULTS"):
+            assert hasattr(module, attr), (name, attr)
+    assert benchmark.reference.for_config({}) is reference
+
+
+@pytest.mark.parametrize("name", ["nosuch", "mimamo.nosuch", "", 3])
+def test_an_unknown_reference_is_refused(name):
+    with pytest.raises(KeyError, match="references: .*'mimamo'"):
+        benchmark.reference.for_config({"reference": name})
+
+
+@pytest.mark.parametrize("section,key", [("backbone", "se_reduction"),
+                                         ("temporal", "attention_heads"),
+                                         ("train", "label_smoothing")])
+def test_a_key_the_reference_does_not_compute_is_refused(section, key):
+    """A configuration with a key that ``mimamo`` does not know is another
+    model: refused, before set-up and when the reference is built, with a
+    message that names the key."""
+    cell = spec.load_cell("bf16-clips")
+    config, mix = tiny(cell)
+    config[section][key] = 16
+    match = f"{section}: .*'{key}'.*reference of the configuration's own"
+    with pytest.raises(ValueError, match=match):
+        reference.check_supported(config)
+    with pytest.raises(ValueError, match=match):
+        main.execute(cell, 1, 0.1, False, "cpu", time.perf_counter(),
+                     config=config, mix=mix)
+    with pytest.raises(ValueError, match=match):
+        reference.Reference(config, {}, "cpu")
+
+
+def test_a_leaf_kind_make_weights_does_not_draw_is_refused(monkeypatch):
+    schema = reference.schema
+
+    def with_gate(cfg):
+        return schema(cfg) + [("backbone.layer1.0.se.fc1.weight",
+                               (16, 256, 1, 1), "se_gate", 256)]
+    monkeypatch.setattr(reference, "schema", with_gate)
+    config, _ = tiny(spec.load_cell("bf16-clips"))
+    with pytest.raises(ValueError,
+                       match="'backbone.layer1.0.se.fc1.weight'.*'se_gate'"):
+        data.make_weights(config, 1, "cpu")
 
 
 def test_fp32_port_matches_the_reference():

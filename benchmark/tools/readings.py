@@ -7,7 +7,8 @@ in one process (the kernels build once).
 
 A control is the reference put in the program's place: ``fp8`` or
 ``tf32`` (the reference in that precision), or, for a training cell, a
-planted fault of ``reference.mimamo.FAULTS``. One JSON line a seed.
+planted fault of the ``FAULTS`` of the configuration's reference
+(``benchmark/reference``). One JSON line a seed.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import time
 import torch
 
 from ..harness import main, spec
-from ..reference import mimamo as reference
 
 
 def readings(cell: spec.Cell, seed: int, seconds: float, controls, device,
@@ -33,6 +33,7 @@ def readings(cell: spec.Cell, seed: int, seconds: float, controls, device,
     out = {"seed": seed, "program": {k: c["value"] for k, c in
                                      result["checks"].items()},
            "metrics": {k: m["value"] for k, m in result["metrics"].items()}}
+    reference = run.reference
     for name in controls:
         if name in reference.FAULTS:
             got = kind.outputs(run, reference.Reference(

@@ -31,7 +31,6 @@ import torch
 from mimamo_tpu_torch import train
 
 from ..harness import data, judge, program
-from ..reference import mimamo as reference
 
 
 def _batches(run):
@@ -127,17 +126,18 @@ def window(run) -> None:
 def outputs(run, ref, fault=None):
     """The reference's first steps on the same batches, and its step from
     the state the window's last step started from, on that step's batch;
-    ``fault`` plants one of ``reference.FAULTS`` in both."""
+    ``fault`` plants one of the run's reference's ``FAULTS`` in both."""
     def batches(indices):
         return [{k: torch.from_numpy(v) for k, v in run.inputs[i].items()}
                 for i in indices]
 
     lr = run.config["train"]["learning_rate"]
     last = run.observed["last"]
-    return {"first": reference.train_steps(
+    steps = run.reference.train_steps
+    return {"first": steps(
                 ref, batches(range(run.mix["checked_steps"])), lr=lr,
                 fault=fault),
-            "last": reference.train_steps(
+            "last": steps(
                 ref, batches([last["batch"]]), lr=lr, fault=fault,
                 resume=last)}
 
