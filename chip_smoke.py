@@ -23,6 +23,10 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      ``bottleneck_library``; each launch's time, byte bound and PyTorch's
      time, and their sums over a call (record ``bottleneck_epilogue`` at
      layer1's conv3);
+     ``se_gate``: the SE gate's squeeze and scale kernels at every block
+     of one bf16 SE-ResNet-50 backbone call of B x T frames, against their
+     plain versions and each block against ``bottleneck_library``, with
+     their times, byte bound and PyTorch's chain (:func:`check_se_gate`);
      ``fft_invariance``: the phase stage gives a frame the same bits
      whatever batch it arrives in (``bench/fft_invariance.py``: 384 seeded
      crops, each of 3 frames at 4 positions of batches of 1 to 384
@@ -61,7 +65,12 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      120-frame video with a boxes sidecar through ``MimamoAPI.predict``
      and ``VideoProcessor.process``;
   8. runs the same weights on one clip x 8 frames on the CPU, in fp32,
-     and compares the card's embeddings and outputs with it;
+     and compares the card's embeddings and outputs with it; ``se``: the
+     ``se-bf16-clips`` cell's model (bf16, ``se_reduction`` 16) through
+     ``predict_clips`` at the flagship shape and one ``StreamingSession``
+     feed, finite, streamed against clip mode, with the launches of each
+     (phase 1, stem 1, layer2 0: an SE backbone runs layer2 on cuDNN, the
+     epilogue 32, squeeze 16, scale 16: :func:`check_se_path`);
   9. ``fp32``: the default config (``MimamoConfig()``, fp32 backbone)
      through ``predict_clips`` at the flagship shape: launches (phase 1,
      fp32 stem 1, layer2 kernel 0: fp32 layer2 runs on cuDNN), frames/s,
@@ -190,7 +199,10 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      of 2 under ``launches_parallel_train`` and
      ``launches_parallel_predict_batch``, the stride variant's backbone call
      under ``launches_stride_variant``, ``predict_clips`` after a bf16
-     fine-tune under ``launches_finetune_bf16_predict``)
+     fine-tune under ``launches_finetune_bf16_predict``, the SE model's
+     under ``launches_se_predict_clips`` / ``launches_se_stream_feed``; the
+     record ``se_gate`` counts its two kernels together, and its
+     ``launches`` are the SE model's ``predict_clips``)
      and, last, the device line.
 
 Any failure exits non-zero. Needs one CUDA card; imports nothing of JAX or
@@ -637,10 +649,13 @@ def epilogue_launches(fp32: bool = False) -> int:
 
 
 def backbone_of(state: dict, dtype: str, device: str,
-                stride_in_1x1: bool = True) -> FoldedResNet50:
+                stride_in_1x1: bool = True,
+                se_reduction: int = 0) -> FoldedResNet50:
     """``FoldedResNet50`` of the backbone weights in ``state`` (the keys of
-    both stride placements are the same) on ``device``."""
-    spec = BackboneSpec(input_size=2 * S, dtype=dtype)
+    both stride placements are the same; an SE ``se_reduction`` needs the
+    gates' keys) on ``device``."""
+    spec = BackboneSpec(input_size=2 * S, dtype=dtype,
+                        se_reduction=se_reduction)
     model = ResNet50(spec, stride_in_1x1=stride_in_1x1)
     model.load_state_dict({k[len("backbone."):]: v for k, v in state.items()
                            if k.startswith("backbone.")})
@@ -762,6 +777,111 @@ def check_epilogue(state: dict, line: str) -> dict:
     return rec
 
 
+def bf16_steps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in bf16 steps between two finite bf16 tensors
+    whose elements share a sign or are zero."""
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max())
+
+
+def check_se_gate(line: str) -> dict:
+    """The SE gate's squeeze and scale kernels at every block of one bf16
+    SE-ResNet-50 backbone call of B x T frames (the ``se-bf16-clips``
+    cell's call), on the stage inputs of seeded crops and weights: the
+    squeeze against its plain version (at most one bf16 step apart: the
+    sums run in another order) and a frame's bits alone against the
+    batch's; the scale against its plain version on the same gate
+    (``torch.equal``); each block against ``bottleneck_library`` (max-rel
+    < 2e-2, the bf16 kernels' gate). Times each pass, the excitation
+    between them, the plain versions and PyTorch's chain of the same
+    function on the same raw conv3 output (bias add, mean, product,
+    residual add, relu; the excitation left out of both); the byte bound
+    (conv3's output read once, the residual or the projection's output
+    read once, the output written once). Returns the record ``se_gate``:
+    the sums over the call's 16 blocks (32 launches)."""
+    be = bottleneck_epilogue
+    cfg = MimamoConfig(backbone=BackboneSpec(dtype="bfloat16",
+                                             se_reduction=16))
+    folded = backbone_of(weights.init_variables(cfg, SEED + 80), "bfloat16",
+                         "cuda", se_reduction=16)
+    rng = np.random.default_rng(SEED + 80)
+    x = folded.run_stem(torch.from_numpy(rng.integers(
+        0, 256, (B * T, S, S, 3), dtype=np.uint8)).cuda().float())
+    report = {"card": line, "ptxas": ptxas_report(
+        _build.build().with_suffix(".log").read_text(), "se_")}
+    rows = []
+    for stage in (1, 2, 3, 4):
+        for blk in folded.stages[stage]:
+            conv = be._conv
+            y = be.epilogue(conv(x, blk["conv1"], bias=False),
+                            blk["conv1"][1])
+            y = be.epilogue(conv(y, blk["conv2"], bias=False),
+                            blk["conv2"][1])
+            y3, b3 = conv(y, blk["conv3"], bias=False), blk["conv3"][1]
+            del y
+            args = ((conv(x, blk["downsample"], bias=False),
+                     blk["downsample"][1]) if "downsample" in blk
+                    else (x, None))
+            s = be.se_squeeze(y3, b3)
+            g = be.excite(s, blk["se"])
+            got = be.se_scale(y3.clone(), b3, g, *args)
+            plain = be.se_scale_plain(y3, b3, g, *args)
+            want = be.bottleneck_library(x, blk)
+
+            def library(y3=y3, b3=b3, g=g, args=args):
+                u = y3 + b3.reshape(1, -1, 1, 1)
+                be.se_mean(u)               # the squeeze; g is given
+                r = args[0] if args[1] is None else \
+                    args[0] + args[1].reshape(1, -1, 1, 1)
+                return torch.relu(u * g[:, :, None, None] + r)
+
+            scratch = y3.clone()
+            nbytes = 3 * y3.numel() * y3.element_size()
+            row = {"shape": list(y3.shape),
+                   "projection": args[1] is not None,
+                   "squeeze_steps": bf16_steps(
+                       s, be.se_squeeze_plain(y3, b3)),
+                   "squeeze_alone_equal": torch.equal(
+                       be.se_squeeze(y3[-1:], b3), s[-1:]),
+                   "scale_equal_plain": torch.equal(got, plain),
+                   "block_vs_library": errors(got, want),
+                   "finite": bool(torch.isfinite(got).all()),
+                   "bytes": nbytes,
+                   "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                   "squeeze_ms": time_ms(lambda: be.se_squeeze(y3, b3)),
+                   "scale_ms": time_ms(lambda: be.se_scale(
+                       scratch, b3, g, *args)),
+                   "excite_ms": time_ms(lambda: be.excite(s, blk["se"])),
+                   "plain_ms": time_ms(lambda: (
+                       be.se_squeeze_plain(y3, b3),
+                       be.se_scale_plain(y3, b3, g, *args)), batch=2),
+                   "library_ms": time_ms(library)}
+            rows.append(row)
+            del y3, args, s, g, got, plain, scratch
+            x = want
+    total = {k: sum(r[k] for r in rows)
+             for k in ("bytes", "bound_ms", "squeeze_ms", "scale_ms",
+                       "excite_ms", "plain_ms", "library_ms")}
+    worst = max(r["block_vs_library"]["max_rel_err"] for r in rows)
+    report.update(frames=B * T, blocks=len(rows), call=total,
+                  worst_block_max_rel=worst, rows=rows)
+    print(json.dumps({"se_gate": report}), flush=True)
+    ok = (len(rows) == 16 and worst < 2e-2
+          and all(r["squeeze_steps"] <= 1 and r["squeeze_alone_equal"]
+                  and r["scale_equal_plain"] and r["finite"] for r in rows))
+    if not ok:
+        raise AssertionError(f"SE gate kernels: {report}")
+    rec = record("se_gate", "mimamo_tpu_torch/csrc/bottleneck_epilogue.cu",
+                 "none: the JAX package has no SE gate",
+                 {"max_rel_err": worst, "max_abs_err": None},
+                 {"tol_max_rel": 2e-2},
+                 total["squeeze_ms"] + total["scale_ms"], total["plain_ms"],
+                 total["bytes"], 0.0, total["library_ms"])
+    rec["kernels"] = ["se_squeeze", "se_scale"]
+    rec["excite_ms"] = total["excite_ms"]
+    return rec
+
+
 def check_small_shapes(model: Mimamo) -> None:
     """The stem and layer2 kernels at shapes other than the flagship's,
     against their plain versions: a crop size with an odd number of pooled
@@ -872,7 +992,9 @@ KERNELS = {"phase_diff_resize": phase_kernel.KERNEL,
            "stem_fused[f32]": stem_kernel.KERNEL_F32,
            "layer1_dots": layer1_dots_kernel.KERNEL,
            "layer2_g4_dots": layer2_dots_kernel.KERNEL,
-           "bottleneck_epilogue": bottleneck_epilogue.KERNEL}
+           "bottleneck_epilogue": bottleneck_epilogue.KERNEL,
+           "se_squeeze": bottleneck_epilogue.SQUEEZE,
+           "se_scale": bottleneck_epilogue.SCALE}
 
 
 def expected_launches(forwards: int = 1, classify: int = 0,
@@ -889,7 +1011,8 @@ def expected_launches(forwards: int = 1, classify: int = 0,
             "layer2_fused": 0 if fp32 else 4 * backbone,
             "stem_fused[f32]": backbone if fp32 else 0,
             "layer1_dots": 0, "layer2_g4_dots": 0,
-            "bottleneck_epilogue": epilogue_launches(fp32) * backbone}
+            "bottleneck_epilogue": epilogue_launches(fp32) * backbone,
+            "se_squeeze": 0, "se_scale": 0}
 
 
 def counted(fn, expected: dict = None):
@@ -905,6 +1028,23 @@ def counted(fn, expected: dict = None):
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
     return result, launches
+
+
+def launched(counts: dict, rec: dict, missing: int = None) -> int:
+    """``rec``'s launches in ``counts`` (kernel name -> launches): those of
+    its own name, or summed over its ``kernels``; ``missing`` for a kernel
+    that ``counts`` lacks (None: a ``KeyError``)."""
+    return sum(counts[k] if missing is None else counts.get(k, missing)
+               for k in rec.get("kernels", [rec["name"]]))
+
+
+def se_launches() -> dict:
+    """Launches of one bf16 SE-ResNet-50 forward: phase 1, stem 1, no
+    layer2 kernel (an SE backbone runs layer2 on cuDNN), the epilogue after
+    conv1 and conv2 of each of the 16 blocks, one squeeze and one scale a
+    block."""
+    return dict(expected_launches(), layer2_fused=0, bottleneck_epilogue=32,
+                se_squeeze=16, se_scale=16)
 
 
 def fill_session(model: Mimamo, clips: np.ndarray):
@@ -981,6 +1121,37 @@ def check_streaming(model: Mimamo, clips: np.ndarray, line: str) -> dict:
                       "stream_stage_sum_ms": sum(stages.values()),
                       "card": line}), flush=True)
     return launches
+
+
+def check_se_path(clips: np.ndarray, line: str) -> dict:
+    """The ``se-bf16-clips`` cell's model (bf16, ``se_reduction`` 16,
+    seeded weights) on the main path: ``predict_clips`` of the B x T clips
+    and one feed of a ``StreamingSession`` at capacity 8 x chunk 16, each
+    with its launches counted (:func:`se_launches`); the outputs finite,
+    the streamed ones against clip mode. Returns the launch counts of
+    both."""
+    cfg = MimamoConfig(backbone=BackboneSpec(dtype="bfloat16",
+                                             se_reduction=16))
+    model = Mimamo(cfg)
+    model.load_state_dict(weights.init_variables(cfg, SEED + 80))
+    model.predict_clips(clips)                           # warm-up
+    torch.cuda.synchronize()
+    out, clip_launches = counted(lambda: model.predict_clips(clips),
+                                 se_launches())
+    if tuple(out.shape) != (B, T, 2) or not torch.isfinite(out).all():
+        raise AssertionError(f"SE predict_clips gave {tuple(out.shape)}, "
+                             f"finite={bool(torch.isfinite(out).all())}")
+    sess, streamed = fill_session(model, clips)
+    rel = max_rel(streamed, out.cpu().numpy())
+    _, feed_launches = counted(
+        lambda: sess.feed({slot: clips[slot, :CHUNK]
+                           for slot in range(CAPACITY)}), se_launches())
+    print(json.dumps({"se_stream_vs_clips_max_rel": rel,
+                      "tol": STREAM_REL_TOL, "card": line}), flush=True)
+    if not (np.isfinite(streamed).all() and rel < STREAM_REL_TOL):
+        raise AssertionError("the SE streaming session disagrees with "
+                             "clip mode")
+    return {"predict_clips": clip_launches, "stream_feed": feed_launches}
 
 
 def check_from_crops(model: Mimamo, line: str) -> dict:
@@ -2370,7 +2541,8 @@ def variant_launches(cfg: MimamoConfig) -> dict:
             "stem_fused[f32]": int(stem and fp32),
             "layer1_dots": 0, "layer2_g4_dots": 0,
             "bottleneck_epilogue": epilogue_launches(fp32)
-            * int(spec.use_macro)}
+            * int(spec.use_macro),
+            "se_squeeze": 0, "se_scale": 0}
 
 
 class FramesSeen:
@@ -3400,7 +3572,8 @@ def main() -> int:
         recs = [check_phase(to_grayscale(crops), cfg),
                 check_stem(crops.reshape(B * T, S, S, 3), model),
                 check_layer2(crops.reshape(B * T, S, S, 3), model),
-                check_epilogue(state, line)]
+                check_epilogue(state, line), check_se_gate(line)]
+    se_rec = recs[-1]
     del crops
     torch.cuda.empty_cache()
 
@@ -3430,11 +3603,11 @@ def main() -> int:
     classify_launches = check_api(model, state, line)
     check_api_video(model, state, line)
     for rec in recs:
-        rec["launches"] = launches[rec["name"]]
-        rec["launches_stream_feed"] = feed_launches[rec["name"]]
-        rec["launches_from_crops"] = crops_launches[rec["name"]]
-        rec["launches_predict_video"] = video_launches[rec["name"]]
-        rec["launches_classify_frames"] = classify_launches[rec["name"]]
+        rec["launches"] = launched(launches, rec)
+        rec["launches_stream_feed"] = launched(feed_launches, rec)
+        rec["launches_from_crops"] = launched(crops_launches, rec)
+        rec["launches_predict_video"] = launched(video_launches, rec)
+        rec["launches_classify_frames"] = launched(classify_launches, rec)
 
     # -- the same weights on the CPU, one clip x 8 frames --------------------
     small = clips[:1, :8]
@@ -3457,6 +3630,15 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # -- the SE-ResNet-50 backbone's main path --------------------------------
+    se_path = check_se_path(clips, line)
+    torch.cuda.empty_cache()
+    for rec in recs:
+        rec["launches_se_predict_clips"] = launched(
+            se_path["predict_clips"], rec)
+        rec["launches_se_stream_feed"] = launched(se_path["stream_feed"], rec)
+    se_rec["launches"] = se_rec["launches_se_predict_clips"]
+
     # -- the default config: fp32 backbone ------------------------------------
     model32, fp32_launches = check_fp32(state, clips, (cpu_out, cpu_emb), line)
     with torch.no_grad():
@@ -3470,8 +3652,8 @@ def main() -> int:
     train_launches = check_train(state, line)
     recs.append(stem_rec)
     for rec in recs:
-        rec["launches_fp32_forward"] = fp32_launches[rec["name"]]
-        rec["launches_train_step"] = train_launches[rec["name"]]
+        rec["launches_fp32_forward"] = launched(fp32_launches, rec)
+        rec["launches_train_step"] = launched(train_launches, rec)
     stem_rec["launches"] = fp32_launches["stem_fused[f32]"]
 
     # -- the serving daemon, the command line and the corpus runner ----------
@@ -3490,11 +3672,11 @@ def main() -> int:
     with torch.no_grad():
         probe_recs, probe_launches = check_probes(line)
     for rec in recs:
-        rec["launches_probes"] = probe_launches[rec["name"]]
+        rec["launches_probes"] = launched(probe_launches, rec)
     recs += probe_recs
     for rec in recs:
-        rec["launches_serve_feed"] = serve_launches[rec["name"]]
-        rec["launches_cli_predict"] = cli_launches[rec["name"]]
+        rec["launches_serve_feed"] = launched(serve_launches, rec)
+        rec["launches_cli_predict"] = launched(cli_launches, rec)
 
     # -- every crop size, and the reference's weights ---------------------------
     t = time.perf_counter()
@@ -3505,8 +3687,8 @@ def main() -> int:
     convert = check_convert(line)
     print(json.dumps({"convert_s": time.perf_counter() - t}), flush=True)
     for rec in recs:
-        rec["launches_convert_cli_predict"] = convert[
-            "launches_cli_predict"][rec["name"]]
+        rec["launches_convert_cli_predict"] = launched(
+            convert["launches_cli_predict"], rec)
 
     # -- the model variants -------------------------------------------------------
     t = time.perf_counter()
@@ -3515,7 +3697,7 @@ def main() -> int:
     for rec in recs:
         for name in VARIANTS:
             rec[f"launches_variant_{name}"] = {
-                dtype: variants[name][dtype]["launches"][rec["name"]]
+                dtype: launched(variants[name][dtype]["launches"], rec)
                 for dtype in ("bfloat16", "float32")}
 
     # -- data parallelism -------------------------------------------------
@@ -3523,10 +3705,10 @@ def main() -> int:
     rank0 = check_parallel(state, line)
     print(json.dumps({"parallel_s": time.perf_counter() - t}), flush=True)
     for rec in recs:           # rank 0 of 2; the dots kernels are not there
-        rec["launches_parallel_train"] = rank0["launches_train"].get(
-            rec["name"], 0)
+        rec["launches_parallel_train"] = launched(
+            rank0["launches_train"], rec, 0)
         rec["launches_parallel_predict_batch"] = {
-            dtype: rank0["launches_predict_batch"][dtype].get(rec["name"], 0)
+            dtype: launched(rank0["launches_predict_batch"][dtype], rec, 0)
             for dtype in ("bfloat16", "float32")}
 
     # -- the JAX package's last modules ---------------------------------------
@@ -3534,8 +3716,8 @@ def main() -> int:
     tail_rec, stride_launches, ft_launches = check_a16b(state, line)
     print(json.dumps({"a16b_s": time.perf_counter() - t}), flush=True)
     for rec in recs:
-        rec["launches_stride_variant"] = stride_launches[rec["name"]]
-        rec["launches_finetune_bf16_predict"] = ft_launches[rec["name"]]
+        rec["launches_stride_variant"] = launched(stride_launches, rec)
+        rec["launches_finetune_bf16_predict"] = launched(ft_launches, rec)
     recs += crop_recs + variant_recs + [tail_rec]
     print(json.dumps({"smoke_s": time.perf_counter() - t_start}), flush=True)
 

@@ -31,6 +31,16 @@ Inference runs the BN-folded form, :class:`FoldedResNet50`, built by
     so an fp32 backbone runs layer2 as XLA convs);
   * pool5: mean over space, the 2048-d embedding, and the FER+ ``fc``.
 
+SE-ResNet-50 (``BackboneSpec.se_reduction`` r > 0; Hu et al.,
+arXiv:1709.01507, as ``senet50_ferplus_dag``): every bottleneck has a
+squeeze-and-excitation gate, ``se.fc1`` (C -> C / r) and ``se.fc2`` (C / r
+-> C), 1x1 convs with bias, between conv3 (after its BN) and the residual
+add: ``out = relu(u * sigmoid(fc2(relu(fc1(mean_hw(u))))) + shortcut)``.
+The folded form carries the gate's weights unfolded (they act after BN)
+and runs it through ``kernels.bottleneck_epilogue``'s SE passes on the
+card; its layer2 runs as folded ``F.conv2d`` bottlenecks in every dtype
+(:class:`FoldedResNet50`).
+
 Fine-tuning runs the unfolded :meth:`ResNet50.forward` with training-mode
 BatchNorm (``batchnorm.BatchNorm2d``) on ``preprocess.for_backbone`` input,
 as plain autograd (cuDNN on the card): the kernels are inference-only. A
@@ -43,6 +53,16 @@ in fp32.
 The reference's weights come in through :func:`load_torch_state_dict`
 (torchvision names, or the FER+ MatConvNet ``dag`` names by
 :func:`resolve_torch_names`), as ``cli convert`` reads them.
+
+An SE spec's ``state_dict`` is ResNet-50's plus 64 gate tensors, one gate
+per bottleneck (C the block's conv3 width: 256, 512, 1024, 2048 in layers
+1-4): ``layer{s}.{b}.se.fc1.weight`` [C/r, C, 1, 1], ``.fc1.bias`` [C/r],
+``.fc2.weight`` [C, C/r, 1, 1], ``.fc2.bias`` [C]. It loads through
+``Mimamo.load_state_dict`` (strict, so a plain spec refuses the gates and
+an SE spec wants them). :func:`load_torch_state_dict` and ``cli convert``
+read ResNet-50 only: ``senet50_ferplus_dag``'s own names (believed to be
+``conv{s}_{b}_1x1_down`` / ``_1x1_up`` for the gates) are mapped once that
+file can be tested against.
 """
 
 from __future__ import annotations
@@ -81,19 +101,51 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     conv.padding)
 
 
+def _gate(fc1: Tuple[torch.Tensor, torch.Tensor],
+          fc2: Tuple[torch.Tensor, torch.Tensor], dtype: torch.dtype
+          ) -> bottleneck_epilogue.Gate:
+    """An SE gate's two 1x1 convs, (weight, bias) each, as ``F.linear``
+    weights and biases in ``dtype``."""
+    (w1, b1), (w2, b2) = fc1, fc2
+    return (w1.flatten(1).to(dtype), b1.to(dtype), w2.flatten(1).to(dtype),
+            b2.to(dtype))
+
+
 def _strides(stride: int, stride_in_1x1: bool) -> Tuple[int, int]:
     """(conv1's stride, conv2's) of a block that strides by ``stride``."""
     return (stride, 1) if stride_in_1x1 else (1, stride)
+
+
+class SqueezeExcite(nn.Module):
+    """The squeeze-and-excitation gate of an SE-ResNet bottleneck over
+    ``channels`` channels: ``fc1`` (-> channels / ``reduction``) and ``fc2``
+    (-> channels), 1x1 convs with bias."""
+
+    def __init__(self, channels: int, reduction: int):
+        super().__init__()
+        self.fc1 = nn.Conv2d(channels, channels // reduction, 1)
+        self.fc2 = nn.Conv2d(channels // reduction, channels, 1)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        """``u * gate`` for [N, C, H, W] ``u``, in its dtype: the mean over
+        space summed in fp32 and rounded, each fc on inputs and weights of
+        that dtype (``kernels.bottleneck_epilogue.excite``)."""
+        g = bottleneck_epilogue.excite(
+            bottleneck_epilogue.se_mean(u),
+            _gate((self.fc1.weight, self.fc1.bias),
+                  (self.fc2.weight, self.fc2.bias), u.dtype))
+        return u * g[:, :, None, None]
 
 
 class Bottleneck(nn.Module):
     """Bottleneck block; its ``forward`` is the unfolded (training) form,
     inference uses the folded one. ``stride_in_1x1``: the stride in conv1
     (Caffe) or, False, in conv2 (torchvision v1.5); the projection strides
-    either way."""
+    either way. ``se_reduction`` > 0 adds the gate ``se``
+    (:class:`SqueezeExcite`) between bn3 and the residual add."""
 
     def __init__(self, inplanes: int, width: int, stride: int,
-                 stride_in_1x1: bool = True):
+                 stride_in_1x1: bool = True, se_reduction: int = 0):
         super().__init__()
         s1, s2 = _strides(stride, stride_in_1x1)
         self.conv1 = nn.Conv2d(inplanes, width, 1, stride=s1, bias=False)
@@ -103,6 +155,8 @@ class Bottleneck(nn.Module):
         self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
         self.bn3 = BatchNorm2d(width * 4)
+        self.se = (SqueezeExcite(width * 4, se_reduction) if se_reduction
+                   else None)
         self.downsample = None
         if stride != 1 or inplanes != width * 4:
             self.downsample = nn.Sequential(
@@ -115,7 +169,10 @@ class Bottleneck(nn.Module):
             res = self.downsample[1](_conv(self.downsample[0], x))
         y = F.relu(self.bn1(_conv(self.conv1, x)))
         y = F.relu(self.bn2(_conv(self.conv2, y)))
-        return F.relu(self.bn3(_conv(self.conv3, y)) + res)
+        y = self.bn3(_conv(self.conv3, y))
+        if self.se is not None:
+            y = self.se(y)
+        return F.relu(y + res)
 
 
 class ResNet50(nn.Module):
@@ -133,7 +190,7 @@ class ResNet50(nn.Module):
             for b in range(blocks):
                 layer.append(Bottleneck(inplanes, width,
                                         2 if (i > 0 and b == 0) else 1,
-                                        stride_in_1x1))
+                                        stride_in_1x1, spec.se_reduction))
                 inplanes = width * 4
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.fc = nn.Linear(spec.feature_dim, spec.num_classes)
@@ -185,7 +242,9 @@ def fold_batchnorm(model: ResNet50) -> Folded:
     ``conv'(x) + bias'`` with ``weight' = weight * s`` over the output
     channel and ``bias' = beta - mean * s``, ``s = gamma / sqrt(var + eps)``.
     Returns fp32 (OIHW weight, bias) per conv, keyed by its torch name
-    (``conv1``, ``layer2.0.conv1``, ``layer2.0.downsample``), plus ``fc``.
+    (``conv1``, ``layer2.0.conv1``, ``layer2.0.downsample``), plus ``fc``;
+    an SE gate's 1x1 convs (``layer2.0.se.fc1``, ``.fc2``) unfolded, since
+    they act after bn3.
     """
     out: Folded = {"conv1": _fold(model.conv1, model.bn1),
                    "fc": (model.fc.weight.clone(), model.fc.bias.clone())}
@@ -198,6 +257,11 @@ def fold_batchnorm(model: ResNet50) -> Folded:
             if blk.downsample is not None:
                 out[f"{p}downsample"] = _fold(blk.downsample[0],
                                               blk.downsample[1])
+            if blk.se is not None:
+                for fc in ("fc1", "fc2"):
+                    conv = getattr(blk.se, fc)
+                    out[f"{p}se.{fc}"] = (conv.weight.clone(),
+                                          conv.bias.clone())
     return {k: (w.float(), b.float()) for k, (w, b) in out.items()}
 
 
@@ -216,7 +280,12 @@ class FoldedResNet50:
     bf16, :meth:`_layer2_tail_kernel` in bf16 under ``stride_in_1x1=False``
     (block 0 strides its 3x3 conv, a function the kernel does not compute:
     block 0 as ``F.conv2d``, blocks 1-3 through the kernel) and
-    :meth:`_layer2_convs` in fp32.
+    :meth:`_layer2_convs` in fp32 and in an SE configuration
+    (``spec.se_reduction``) in every dtype: the gate needs each frame's
+    whole conv3 map before the residual add, and ``layer2.cu``'s block
+    kernel computes a bottleneck tile by tile, so it never holds one (a
+    route the config picks, not a fallback). Every SE block carries its
+    gate's weights (``se``) in the work dtype.
     """
 
     def __init__(self, folded: Folded, spec: BackboneSpec,
@@ -239,7 +308,7 @@ class FoldedResNet50:
             self.run_stem = self._stem_resized
         # the blocks of each stage that run as F.conv2d
         conv_blocks = dict(enumerate(STAGE_SIZES, 1))
-        if dt == torch.bfloat16:
+        if dt == torch.bfloat16 and not spec.se_reduction:
             self.layer2 = layer2_kernel.pack_layer2_params(folded, dt,
                                                            stride_in_1x1)
             if stride_in_1x1:
@@ -267,15 +336,20 @@ class FoldedResNet50:
                     blk[name] = (
                         w.to(dt).contiguous(memory_format=torch.channels_last),
                         bias.to(dt), stride, w.shape[-1] // 2)
+                if p + "se.fc1" in folded:
+                    blk["se"] = _gate(folded[p + "se.fc1"],
+                                      folded[p + "se.fc2"], dt)
                 blocks.append(blk)
             self.stages[stage] = blocks
         self.fc = folded["fc"]
 
     _bottleneck = staticmethod(bottleneck_epilogue.bottleneck)
+    # each SE block's gate: squeeze, excite and scale
+    _gate_span = staticmethod(functools.partial(tracing.span, "backbone.se"))
 
     def _stage(self, x: torch.Tensor, stage: int) -> torch.Tensor:
         for blk in self.stages[stage]:
-            x = self._bottleneck(x, blk)
+            x = self._bottleneck(x, blk, self._gate_span)
         return x
 
     def _stem_kernel(self, crops: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,12 @@ class BackboneSpec:
     mean subtraction. A crop of exactly half ``input_size`` goes through
     the stem kernel (the exact 2x upscale fused); any other ratio through
     the bilinear resize and a plain conv1 (``backbone.FoldedResNet50``).
+
+    ``se_reduction``: 0 is ResNet-50; r > 0 is SE-ResNet-50 (Hu et al.,
+    arXiv:1709.01507; ``senet50_ferplus_dag``): every bottleneck gates its
+    conv3 output with a squeeze-and-excitation block of C / r hidden
+    channels (16 in the published model). r must divide 256, the
+    narrowest conv3 output.
     """
 
     input_size: int = 224
@@ -74,8 +80,13 @@ class BackboneSpec:
     # batch prediction of the same frames (the anchor grids shift at chunk
     # seams).
     appearance_stride: int = 1
+    se_reduction: int = 0
 
     def __post_init__(self):
+        if self.se_reduction < 0 or (self.se_reduction
+                                     and 256 % self.se_reduction):
+            raise ValueError(f"se_reduction must be 0 or divide 256, got "
+                             f"{self.se_reduction}")
         if self.appearance_stride < 1:
             raise ValueError(f"appearance_stride must be >= 1, got "
                              f"{self.appearance_stride}")

@@ -96,7 +96,9 @@ KERNELS = {"phase_diff_resize": phase_kernel.KERNEL,
            "stem_fused": stem_kernel.KERNEL,
            "layer2_fused": layer2_kernel.KERNEL,
            "stem_fused[f32]": stem_kernel.KERNEL_F32,
-           "bottleneck_epilogue": bottleneck_epilogue.KERNEL}
+           "bottleneck_epilogue": bottleneck_epilogue.KERNEL,
+           "se_squeeze": bottleneck_epilogue.SQUEEZE,
+           "se_scale": bottleneck_epilogue.SCALE}
 
 
 def config(variant: str = "flagship", step: str = "time") -> MimamoConfig:

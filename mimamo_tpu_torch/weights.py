@@ -128,7 +128,8 @@ def from_jax_variables(variables: Mapping[str, Any]) -> StateDict:
 @torch.no_grad()
 def init_variables(config: MimamoConfig, seed: int) -> StateDict:
     """Random port weights from a seed (``torch.Generator``, on the CPU):
-    convs normal with std 1/sqrt(fan_in), Linear and GRU uniform in
+    convs normal with std 1/sqrt(fan_in) (a conv's bias, as in the SE
+    gates, uniform in +-1/sqrt(fan_in)), Linear and GRU uniform in
     +-1/sqrt(fan_in), BN affine and running stats near identity."""
     g = torch.Generator().manual_seed(seed)
     with torch.device("meta"):        # no default init, no global RNG draws
@@ -143,6 +144,8 @@ def init_variables(config: MimamoConfig, seed: int) -> StateDict:
             fan_in = module.weight[0].numel()
             module.weight.copy_(torch.randn(module.weight.shape, generator=g)
                                 / math.sqrt(fan_in))
+            if module.bias is not None:       # the SE gates' 1x1 convs
+                uniform_(module.bias, 1 / math.sqrt(fan_in))
         elif isinstance(module, nn.BatchNorm2d):
             n = module.num_features
             module.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))

@@ -74,12 +74,23 @@ ENV = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
 TIMEOUT_S = 300
 
 
+def _jax_spec(spec):
+    """The JAX package's spec with the port spec's fields; a field of the
+    port's own (``BackboneSpec.se_reduction``) has no counterpart there and
+    must hold its default."""
+    cls = getattr(jc, type(spec).__name__)
+    known = {f.name for f in dataclasses.fields(cls)}
+    values = dataclasses.asdict(spec)
+    own = {k: v for k, v in values.items() if k not in known}
+    assert own == {k: v for k, v in dataclasses.asdict(type(spec)()).items()
+                   if k in own}, own
+    return cls(**{k: v for k, v in values.items() if k in known})
+
+
 def _jax_config(cfg):
     """The JAX package's config with the port config's fields."""
-    return jc.MimamoConfig(**{
-        f.name: getattr(jc, type(spec).__name__)(**dataclasses.asdict(spec))
-        for f in dataclasses.fields(cfg)
-        for spec in [getattr(cfg, f.name)]})
+    return jc.MimamoConfig(**{f.name: _jax_spec(getattr(cfg, f.name))
+                              for f in dataclasses.fields(cfg)})
 
 
 def _jax_variables(cfg, seed):
