@@ -43,7 +43,10 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      streams fed 3 chunks equal ``predict_clips`` of the same clips; a
      slot removed, added again and fed starts fresh; a slot left out of a
      feed is not moved by it; checks the launch counts of one feed and
-     times the feed;
+     times the feed; slots 2 and 5 of 8 fed alone the clips chunk by
+     chunk equal clip mode and, bit for bit, a twin fed every slot, with
+     the launches of one such feed and the lane counts that sessions of 8
+     and 32 slots run; feeds of 1, 2 and 32 of 32 slots timed;
   5. runs ``predict_from_crops`` over 120 frames (4 windows in one padded
      batch of 8) and over 20 frames (padded to one clip, trimmed back)
      against ``merge_window_predictions`` over direct ``predict_clips``,
@@ -200,7 +203,8 @@ gitignored ``mimamo_tpu_torch/_build/``), then:
      ``launches_parallel_predict_batch``, the stride variant's backbone call
      under ``launches_stride_variant``, ``predict_clips`` after a bf16
      fine-tune under ``launches_finetune_bf16_predict``, the SE model's
-     under ``launches_se_predict_clips`` / ``launches_se_stream_feed``; the
+     under ``launches_se_predict_clips`` / ``launches_se_stream_feed``, a
+     feed of 2 of 8 slots under ``launches_subset_feed``; the
      record ``se_gate`` counts its two kernels together, and its
      ``launches`` are the SE model's ``predict_clips``)
      and, last, the device line.
@@ -1120,6 +1124,81 @@ def check_streaming(model: Mimamo, clips: np.ndarray, line: str) -> dict:
     print(json.dumps({"stream_stage_ms": stages,
                       "stream_stage_sum_ms": sum(stages.values()),
                       "card": line}), flush=True)
+    return launches
+
+
+def check_lane_gathering(model: Mimamo, clips: np.ndarray, line: str
+                         ) -> dict:
+    """Feeds that run the frame stages on their fed lanes alone. Slots 2
+    and 5 of 8 fed the clips chunk by chunk: against clip mode
+    (STREAM_REL_TOL, as every streamed output), and against a twin fed
+    every slot (the other six on other clips), which runs the full
+    capacity: SAME_SHAPE_REL_TOL, as a stream's bits do not depend on
+    which other slots are fed; the lane counters, and the launches of one
+    such feed. Then feeds of 1, 2 and 32 of 32 slots timed (the median of
+    10, each ending with its outputs on the host), and the time a session
+    of 32 takes to be built, which checks its lane counts and builds their
+    plans. Returns the launch counts of the subset feed."""
+    fed = [2, 5]
+    whole = model.predict_clips(clips).cpu().numpy()[fed]
+    other = np.random.default_rng(SEED + 2).integers(
+        0, 256, (CAPACITY, T, S, S, 3), dtype=np.uint8)
+    sess = StreamingSession(model, capacity=CAPACITY, chunk=CHUNK,
+                            dtype=np.uint8)
+    twin = StreamingSession(model, capacity=CAPACITY, chunk=CHUNK,
+                            dtype=np.uint8)
+    for session in (sess, twin):
+        for _ in range(CAPACITY):
+            session.add_stream()
+    lanes = next(n for n in sess._lane_counts if n >= len(fed))
+    parts, twin_parts, launches = [], [], None
+    for start in range(0, T, CHUNK):
+        frames = {slot: clips[slot, start:start + CHUNK] for slot in fed}
+        if start + CHUNK < T:
+            parts.append(sess.feed(frames))
+        else:
+            out, launches = counted(lambda: sess.feed(frames))
+            parts.append(out)
+        twin_parts.append(twin.feed({
+            slot: frames.get(slot, other[slot, start:start + CHUNK])
+            for slot in range(CAPACITY)}))
+    streamed, beside = (np.stack([np.concatenate([p[slot] for p in ps])
+                                  for slot in fed])
+                        for ps in (parts, twin_parts))
+    rel, twin_rel = max_rel(streamed, whole), max_rel(streamed, beside)
+    counters = (sess.lanes_fed, sess.lanes_run)
+    t = time.perf_counter()
+    sess32 = StreamingSession(model, capacity=32, chunk=CHUNK,
+                              dtype=np.uint8)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    slots = [sess32.add_stream() for _ in range(32)]
+    feed_ms = {}
+    for n in (1, 2, 32):
+        chunks = [{slot: clips[slot % B, start:start + CHUNK]
+                   for slot in slots[:n]} for start in range(0, T, CHUNK)]
+        times = []
+        for i in range(12):
+            t = time.perf_counter()
+            sess32.feed(chunks[i % len(chunks)])
+            times.append(time.perf_counter() - t)
+        feed_ms[n] = statistics.median(times[2:]) * 1e3
+    print(json.dumps({"subset_feed_vs_clips_max_rel": rel,
+                      "subset_feed_vs_full_feed_max_rel": twin_rel,
+                      "subset_lanes_fed_run": counters,
+                      "lane_counts": {CAPACITY: sess._lane_counts,
+                                      32: sess32._lane_counts},
+                      "tol": [STREAM_REL_TOL, SAME_SHAPE_REL_TOL],
+                      "capacity32_build_s": build_s,
+                      "capacity32_feed_ms_by_fed_lanes": feed_ms,
+                      "card": line}), flush=True)
+    feeds = T // CHUNK
+    if not (np.isfinite(streamed).all() and rel < STREAM_REL_TOL
+            and twin_rel <= SAME_SHAPE_REL_TOL
+            and counters == (len(fed) * feeds, lanes * feeds)):
+        raise AssertionError("a subset feed disagrees with clip mode or with "
+                             "a feed of every slot, or ran other lanes than "
+                             "its lane count")
     return launches
 
 
@@ -3596,6 +3675,7 @@ def main() -> int:
 
     # -- the streaming path and the windowed path ---------------------------
     feed_launches = check_streaming(model, clips, line)
+    subset_launches = check_lane_gathering(model, clips, line)
     crops_launches = check_from_crops(model, line)
 
     # -- the video path and the user API -------------------------------------
@@ -3605,6 +3685,7 @@ def main() -> int:
     for rec in recs:
         rec["launches"] = launched(launches, rec)
         rec["launches_stream_feed"] = launched(feed_launches, rec)
+        rec["launches_subset_feed"] = launched(subset_launches, rec)
         rec["launches_from_crops"] = launched(crops_launches, rec)
         rec["launches_predict_video"] = launched(video_launches, rec)
         rec["launches_classify_frames"] = launched(classify_launches, rec)

@@ -21,7 +21,8 @@ weights:
     ``predict_clips``, and in bf16 against ``predict_clips`` of each rank's
     block;
   * feeds a ``StreamingSession`` of 2N slots split over the ranks (1 and
-    2 GRU layers; 3 streams, 2 chunks) against an unsplit session;
+    2 GRU layers; 3 streams, 2 chunks), and one of 4N slots whose 2
+    streams sit on rank 0, each against an unsplit session;
   * ``sharded_ccc`` of a padded, masked ragged batch against the host CCC,
     and ``host_allgather_f64`` of every rank's float64 array, bit for bit.
 
@@ -77,6 +78,11 @@ STEPS = {"time": ("labels", {}),
          "batch": ("omg_labels", {"loss_axis": "batch"}),
          "finetune": ("labels", {"freeze_backbone": False,
                                  "remat_backbone": True})}
+# The split sessions: (name, variant, slots a rank, streams). The first
+# streams take the first slots, so 2 streams in 4 slots a rank all sit on
+# rank 0, and every rank runs 2 lanes, as rank 0 does.
+SESSIONS = (("flagship", "flagship", 2, 3), ("gru2", "gru2", 2, 3),
+            ("one_rank", "flagship", 4, 2))
 # Bounds of the rank-local checks, against the same computation at a world
 # of one (the sums run in another order): loss and CCCs; each temporal
 # gradient, max |d| / its max |g|; outputs. The train-mode backbone at this
@@ -207,8 +213,9 @@ def grad_agreement(a: dict, b: dict) -> tuple:
 
 
 def _session(model: Mimamo, videos: np.ndarray, capacity: int,
-             group) -> Dict[int, List[np.ndarray]]:
-    """Each slot's outputs, chunk by chunk, of 3 streams fed 2 chunks."""
+             group) -> tuple:
+    """Each slot's outputs, chunk by chunk, of one stream a video fed 2
+    chunks, and the session's (``lanes_fed``, ``lanes_run``)."""
     sess = StreamingSession(model, capacity=capacity, chunk=T, group=group)
     slots = [sess.add_stream() for _ in videos]
     outs: Dict[int, List[np.ndarray]] = {s: [] for s in slots}
@@ -217,7 +224,7 @@ def _session(model: Mimamo, videos: np.ndarray, capacity: int,
                                                              videos)})
         for s in slots:
             outs[s].append(got[s])
-    return outs
+    return outs, (sess.lanes_fed, sess.lanes_run)
 
 
 def _sha(state: dict) -> str:
@@ -297,15 +304,18 @@ def run_rank(rank: int, world: int, coordinator: str, cpu: bool,
         del model, m
 
         raw["sessions"] = {}
-        for variant in ("flagship", "gru2"):
+        for name, variant, capacity, videos in SESSIONS:
             m = _model(variant, flagship if variant == "flagship"
                        else _state(variant, weights_dir), dev)
-            got = _session(m, data["videos"], 2 * world, group)
-            plain = _session(m, data["videos"], 2 * world, None)
-            raw["sessions"][variant] = got
-            row[f"session_{variant}_abs"] = max(
+            got, lanes = _session(m, data["videos"][:videos],
+                                  capacity * world, group)
+            plain, _ = _session(m, data["videos"][:videos],
+                                capacity * world, None)
+            raw["sessions"][name] = got
+            row[f"session_{name}_abs"] = max(
                 float(np.abs(g - p).max()) for s in got
                 for g, p in zip(got[s], plain[s]))
+            row[f"session_{name}_lanes"] = lanes
 
         rows_per = data["ccc_preds"].shape[0] // world
         blk = slice(rank * rows_per, (rank + 1) * rows_per)
@@ -332,7 +342,7 @@ def run_rank(rank: int, world: int, coordinator: str, cpu: bool,
         and row["finetune_bn_world1_rel"] <= FINETUNE_BN_REL_TOL
         and max(row["predict_batch_abs"], row["stride2_predict_batch_abs"],
                 row["micro_predict_batch_abs"], row["bf16_predict_batch_abs"],
-                row["session_flagship_abs"], row["session_gru2_abs"],
+                *(row[f"session_{name}_abs"] for name, *_ in SESSIONS),
                 row["sharded_ccc_abs"]) <= OUT_ATOL
         and row["allgather_bit_exact"])
     if out_dir:

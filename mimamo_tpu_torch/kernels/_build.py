@@ -9,7 +9,8 @@ source rebuilds and an unchanged one loads at once. A build failure raises.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises when that is not 0 and
-counts the launches.
+counts the launches. A CUDA graph that holds launches adds them to the
+counts each time it is replayed (:func:`launch_counts`, :func:`count`).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -118,6 +119,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._count_lock = threading.Lock()   # launches from two threads
+        _KERNELS.append(self)
 
     def __call__(self, *args) -> None:
         lib = library()
@@ -131,6 +133,21 @@ class Kernel:
                 f"({lib.mimamo_cuda_error_string(err).decode()})")
         with self._count_lock:
             self.launches += 1
+
+
+_KERNELS: List[Kernel] = []
+
+
+def launch_counts() -> Dict[Kernel, int]:
+    """Every kernel's launches so far."""
+    return {kern: kern.launches for kern in _KERNELS}
+
+
+def count(launches: Dict[Kernel, int]) -> None:
+    """Add ``launches`` (kernel -> launches) to the kernels' counts."""
+    for kern, n in launches.items():
+        with kern._count_lock:
+            kern.launches += n
 
 
 P = ctypes.c_void_p    # device pointer or stream handle

@@ -176,7 +176,8 @@ def phase_diff_resize_scales(bands: Sequence[torch.Tensor],
     return out
 
 
-@functools.lru_cache(maxsize=32)
+# unbounded: a captured CUDA graph (streaming.py) reads these tables
+@functools.lru_cache(maxsize=None)
 def _launch_plan(sizes: Tuple[Tuple[int, int], ...],
                  channels: Tuple[int, ...], b: int, t: int, k: int, p: int,
                  c: int, weighting: bool, device: torch.device):

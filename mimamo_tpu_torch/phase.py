@@ -63,9 +63,16 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
     (float32 matmuls; the caller keeps TF32 off)."""
     h, w = x.shape[-2], x.shape[-1]
     p, q = out_hw
-    rh = torch.from_numpy(_resize_matrix(h, p)).to(x.device)   # [P, h]
-    rw = torch.from_numpy(_resize_matrix(w, q)).to(x.device)   # [Q, w]
+    rh = _resize_matrix_on(h, p, x.device)   # [P, h]
+    rw = _resize_matrix_on(w, q, x.device)   # [Q, w]
     return rh @ (x @ rw.T)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix_on(src: int, dst: int, device: torch.device
+                      ) -> torch.Tensor:
+    """:func:`_resize_matrix` on ``device``, copied there once."""
+    return torch.from_numpy(_resize_matrix(src, dst)).to(device)
 
 
 def phase_diff(c_t: torch.Tensor, c_prev: torch.Tensor) -> torch.Tensor:

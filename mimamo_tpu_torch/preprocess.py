@@ -30,6 +30,7 @@ numpy, copied from the JAX package line for line.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from typing import Iterator, Optional, Tuple, Union
 
@@ -48,6 +49,15 @@ def work_dtype(spec: BackboneSpec) -> torch.dtype:
     return _DTYPES[spec.dtype]
 
 
+@functools.lru_cache(maxsize=None)
+def constant(values: Tuple[float, ...], dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """``values`` on ``device``, copied there once: a forward reads its
+    constants without a copy from the host in every call (a copy that a
+    CUDA graph's capture refuses, ``streaming.py``)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def to_grayscale(frames_rgb: torch.Tensor) -> torch.Tensor:
     """[..., H, W, 3] RGB -> [..., H, W] BT.601 luma, per pixel
     ``fma(b, w_b, fma(g, w_g, r * w_r))``: the JAX package's value on the
@@ -56,8 +66,7 @@ def to_grayscale(frames_rgb: torch.Tensor) -> torch.Tensor:
     bits on the card at 384 frames than at 136, and the phase stage turned
     such last bits into jumps of 2 pi where a phase difference lies near
     +-pi (``mimamo_tpu_torch/bench/fft_invariance.py``)."""
-    wts = torch.tensor(_LUMA_RGB, dtype=frames_rgb.dtype,
-                       device=frames_rgb.device)
+    wts = constant(_LUMA_RGB, frames_rgb.dtype, frames_rgb.device)
     r, g, b = frames_rgb.unbind(-1)
     return torch.addcmul(torch.addcmul(r * wts[0], g, wts[1]), b, wts[2])
 
@@ -99,8 +108,8 @@ def for_backbone(crops_rgb: torch.Tensor, spec: BackboneSpec) -> torch.Tensor:
     work = work_dtype(spec)
     exact2x = spec.input_size == 2 * h == 2 * w
     if exact2x and work == torch.float32:
-        mean = torch.tensor(spec.mean_rgb, dtype=torch.float32,
-                            device=crops_rgb.device)
+        mean = constant(tuple(spec.mean_rgb), torch.float32,
+                        crops_rgb.device)
         x = upscale2x(crops_rgb.to(torch.float32) - mean)
         return x.flip(-1) if spec.channel_order == "bgr" else x
     from .phase import resize_bilinear
@@ -112,7 +121,7 @@ def for_backbone(crops_rgb: torch.Tensor, spec: BackboneSpec) -> torch.Tensor:
         with ieee_fp32_matmul():
             x = resize_bilinear(x.to(torch.float32).movedim(-1, -3),
                                 size).movedim(-3, -1).to(work)
-    mean = torch.tensor(spec.mean_rgb, dtype=work, device=x.device)
+    mean = constant(tuple(spec.mean_rgb), work, x.device)
     if spec.channel_order == "bgr":
         x, mean = x.flip(-1), mean.flip(0)
     return x - mean

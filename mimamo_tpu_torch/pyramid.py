@@ -114,7 +114,8 @@ def make_masks(spec: PyramidSpec) -> Dict[str, tuple]:
     }
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph (streaming.py) reads these masks
+@functools.lru_cache(maxsize=None)
 def band_masks(spec: PyramidSpec, device: torch.device
                ) -> Tuple[torch.Tensor, ...]:
     """The per-scale complex64 band masks of ``spec`` as tensors on

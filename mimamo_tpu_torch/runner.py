@@ -33,6 +33,7 @@ through ``load_state_dict``, or the folded copy goes stale.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Optional, Tuple, Union
 
@@ -69,11 +70,19 @@ def interp_anchor_features(emb: torch.Tensor, t: int, k: int
     """[B, N, F] anchor embeddings -> [B, T, F] per-frame embeddings: a
     gather and a lerp, not a matmul, so the anchors come out bit-exact in
     any dtype (the weights are cast to ``emb``'s)."""
+    i0, i1, frac = _anchor_plan_on(t, k, emb.device)
+    w = frac.to(emb.dtype)[None, :, None]
+    return emb[:, i0] * (1 - w) + emb[:, i1] * w
+
+
+@functools.lru_cache(maxsize=None)
+def _anchor_plan_on(t: int, k: int, device: torch.device):
+    """:func:`stride_anchor_plan` on ``device`` (indices as int64),
+    copied there once."""
     i0, i1, frac = stride_anchor_plan(t, k)
-    w = torch.from_numpy(frac).to(emb)[None, :, None]
-    a = emb[:, torch.from_numpy(i0).to(emb.device, torch.long)]
-    b = emb[:, torch.from_numpy(i1).to(emb.device, torch.long)]
-    return a * (1 - w) + b * w
+    return (torch.from_numpy(i0).to(device, torch.long),
+            torch.from_numpy(i1).to(device, torch.long),
+            torch.from_numpy(frac).to(device))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -162,7 +171,8 @@ class Mimamo(nn.Module):
     def forward(self, crops_rgb: torch.Tensor,
                 carries: Optional[Carries] = None,
                 include_first_pair: bool = False,
-                first_pair_invalid: Optional[torch.Tensor] = None
+                first_pair_invalid: Optional[torch.Tensor] = None,
+                rows: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Carries]:
         """[B, T, S, S, 3] aligned crops in 0..255 (uint8 preferred: the
         cast to float32 happens here, on the device) -> ([B, T, 2], new
@@ -177,6 +187,16 @@ class Mimamo(nn.Module):
         0, k, 2k, ... and the first embedding is dropped, as the JAX
         package does (embedding only the later frames would shift every
         anchor by one). ``first_pair_invalid``: see ``TwoStreamRNN``.
+
+        ``rows`` ([B] distinct indices): the crops are these rows of the
+        batch of N rows that ``carries`` hold (``first_pair_invalid``
+        then [N]). The phase stage and the backbone run on the B rows,
+        each frame alone, and the temporal model on all N, the other rows'
+        frame features zero; outputs and carries come back for the N rows,
+        the unlisted ones to be dropped. The temporal model's rows never
+        mix, but cuBLAS and cuDNN choose its kernels by the batch, so
+        keeping it at N keeps each listed row's bits those of a forward of
+        the N rows wherever the frame stages' bits do not change with B.
 
         A micro-only model (``streams="micro"``) runs no backbone and a
         macro-only one no phase stage, so their kernels do not launch."""
@@ -198,6 +218,12 @@ class Mimamo(nn.Module):
                     emb = self.embed_frames(crops_rgb[:, 1:])
                 else:
                     emb = self.embed_frames(crops_rgb)[:, 1:]
+            if rows is not None:
+                n = carries[0].shape[-2]
+                phase_stacks, emb = (
+                    None if f is None else
+                    f.new_zeros((n,) + f.shape[1:]).index_copy(0, rows, f)
+                    for f in (phase_stacks, emb))
             with tracing.span("temporal", dev):
                 return self.temporal(phase_stacks, emb, carries,
                                      first_pair_invalid, num_frames=t)

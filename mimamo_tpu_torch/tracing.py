@@ -72,6 +72,18 @@ def enabled() -> bool:
     return _enabled
 
 
+@contextlib.contextmanager
+def suspended():
+    """Spans off for the whole process while the block runs (set-up work
+    that serves no request), then as they were."""
+    on = _enabled
+    enable(False)
+    try:
+        yield
+    finally:
+        enable(on)
+
+
 def span(name: str, device=None):
     """A context that marks the stage ``name`` of work on ``device``
     (events only where it is a CUDA device); the shared null context when

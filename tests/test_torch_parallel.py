@@ -234,6 +234,22 @@ def test_session_matches_jax_sharded(ranks, mesh, variant):
                 np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
 
 
+def test_session_with_every_fed_slot_on_one_rank(ranks):
+    """2 streams in a session of 4 slots a rank sit on rank 0: both ranks
+    run its 2 lanes (rank 1 on padding alone), match the unsplit
+    session within the dry run's bound, and give the slots the outputs of
+    the flagship session, whose first two streams are the same videos
+    (that session is held against JAX above)."""
+    for row, raw in zip(ranks["rows"], ranks["raw"]):
+        assert row["session_one_rank_abs"] <= dryrun.OUT_ATOL
+        assert tuple(row["session_one_rank_lanes"]) == (2 * 2, 2 * WORLD * 2)
+        got = raw["sessions"]["one_rank"]
+        assert sorted(got) == [0, 1]
+        for s in got:
+            for g, w in zip(got[s], raw["sessions"]["flagship"][s]):
+                np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+
+
 def test_sharded_ccc_matches_jax(ranks, mesh):
     data = ranks["data"]
     want = np.asarray(jparallel.sharded_ccc(

@@ -15,7 +15,7 @@ from mimamo_tpu import temporal as jtemporal
 from mimamo_tpu.runner import Mimamo as JaxMimamo
 from mimamo_tpu_torch import config as tc
 from mimamo_tpu_torch import temporal as ttemporal
-from mimamo_tpu_torch import weights
+from mimamo_tpu_torch import streaming, weights
 from mimamo_tpu_torch.runner import Mimamo
 from mimamo_tpu_torch.streaming import StreamingSession
 
@@ -298,3 +298,126 @@ def test_fresh_slot_and_unfed_lanes_are_finite(case, weighting):
     assert all(torch.isfinite(c).all() for c in carries)
     assert np.isfinite(sess.feed({slot: x[slot, 1:]})[slot]).all()
     assert all(torch.isfinite(c).all() for c in sess._gru)
+
+
+# -- lane gathering ------------------------------------------------------------
+
+def _state_of(sess, slot):
+    """A slot's carries and pair context, as they are on the device."""
+    return ([c.select(sess._slot_axis, slot).clone() for c in sess._gru]
+            + [sess._context[slot].clone()])
+
+
+def test_subset_feed_matches_streams_and_jax(case):
+    """2 of 8 slots, not adjacent, fed 3 chunks while the other 6 hold
+    state from a feed of their own: each fed slot equals its video's own
+    ``predict_stream`` and the JAX session (atol 1e-5), and every unfed
+    slot's carries and context are bit for bit what they were."""
+    model, _state, videos, want = case
+    sess = StreamingSession(model, capacity=8, chunk=CHUNK)
+    slots = [sess.add_stream() for _ in range(8)]
+    fed = (2, 5)
+    rest = [s for s in slots if s not in fed]
+    sess.feed({s: _video(CHUNK, 20 + s) for s in rest})
+    before = {s: _state_of(sess, s) for s in rest}
+    got = {s: [] for s in fed}
+    for start in range(0, 12, CHUNK):
+        out = sess.feed({s: videos[i, start:start + CHUNK]
+                         for i, s in enumerate(fed)})
+        assert sorted(out) == list(fed)
+        for s in fed:
+            got[s].append(out[s])
+        for s in rest:
+            assert all(torch.equal(a, b) for a, b in
+                       zip(_state_of(sess, s), before[s])), s
+    for i, s in enumerate(fed):
+        series = np.concatenate(got[s])
+        np.testing.assert_allclose(series, _stream(model, videos[i]),
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(series, want[i], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n_fed,lanes", [(1, 1), (3, 3), (5, 8), (8, 8)])
+def test_lane_counters_read_the_buckets(case, n_fed, lanes):
+    """At capacity 8 a feed of k slots runs the smallest lane count of
+    1, 2, 3, 4, 8 that holds k (a CPU session runs every candidate, and
+    every one gives the full capacity's bits there): the frame stages'
+    batch, ``lanes_fed`` and ``lanes_run`` say so."""
+    model = case[0]
+    sess = StreamingSession(model, capacity=8, chunk=CHUNK, dtype=np.uint8)
+    assert sess._lane_counts == sess._same_bits() == [1, 2, 3, 4, 8]
+    slots = [sess.add_stream() for _ in range(8)]
+    assert (sess.lanes_fed, sess.lanes_run) == (0, 0)
+    seen = []
+    hook = model.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0].shape[0]))
+    try:
+        out = sess.feed({s: _video(CHUNK, s).astype(np.uint8)
+                         for s in slots[::-1][:n_fed]})
+    finally:
+        hook.remove()
+    assert len(out) == n_fed and seen == [lanes]
+    assert (sess.lanes_fed, sess.lanes_run) == (n_fed, lanes)
+
+
+def _twins(model, capacity, feeds):
+    """Two sessions of ``capacity`` slots, all claimed, fed ``feeds``
+    (slot -> seed of its chunk) in turn: the first with every other slot
+    fed too, the second with those slots alone. Returns both sessions and
+    their outputs, feed by feed."""
+    rest = {s: 90 + s for s in range(capacity)}
+    sessions, outs = [], []
+    for chunks in ([{**rest, **f} for f in feeds], feeds):
+        sess = StreamingSession(model, capacity=capacity, chunk=CHUNK)
+        assert [sess.add_stream() for _ in range(capacity)] == list(
+            range(capacity))
+        outs.append([sess.feed({s: _video(CHUNK, seed)
+                                for s, seed in c.items()}) for c in chunks])
+        sessions.append(sess)
+    return sessions, outs
+
+
+def test_full_feed_and_gathered_bucket_agree(case):
+    """Slots 0-7 of 16, fed two chunks, run gathered into a lane count of
+    8; a twin session fed all 16 slots runs them at the full capacity.
+    The eight slots' outputs are equal, and so are their carries and
+    contexts."""
+    model = case[0]
+    feeds = [{s: 40 + 8 * k + s for s in range(8)} for k in range(2)]
+    (full, gathered), (a, b) = _twins(model, 16, feeds)
+    assert (gathered.lanes_fed, gathered.lanes_run) == (16, 16)
+    assert (full.lanes_fed, full.lanes_run) == (32, 32)
+    for x, y in zip(a, b):
+        for s in range(8):
+            np.testing.assert_array_equal(x[s], y[s])
+    for s in range(8):
+        assert all(torch.equal(x, y) for x, y in
+                   zip(_state_of(full, s), _state_of(gathered, s)))
+
+
+def test_lane_counts_skip_other_bits(case, monkeypatch):
+    """A lane count whose frame stages give other bits than the full
+    capacity's is not run where sessions check their bits (here the CPU,
+    as a card's): with the embeddings of 2-row batches nudged, a session
+    of 8 drops 2, feeds of 2 slots run 3 lanes, and those slots get the
+    outputs of a feed of every slot bit for bit."""
+    _, state, _, _ = case
+    model = Mimamo(_configs()[1], device="cpu")
+    model.load_state_dict(state)
+    embed = model.embed_frames
+
+    def nudged(crops):
+        emb = embed(crops)
+        return emb + 1e-3 if crops.shape[0] == 2 else emb
+
+    monkeypatch.setattr(model, "embed_frames", nudged)
+    monkeypatch.setattr(streaming, "checks_bits", lambda device: True)
+    feeds = [{2: 60 + k, 5: 70 + k} for k in range(2)]
+    (full, gathered), (a, b) = _twins(model, 8, feeds)
+    assert gathered._lane_counts == [1, 3, 4, 8]
+    assert (gathered.lanes_fed, gathered.lanes_run) == (4, 6)
+    for x, y in zip(a, b):
+        assert sorted(y) == [2, 5]
+        for s in (2, 5):
+            np.testing.assert_array_equal(x[s], y[s])
+

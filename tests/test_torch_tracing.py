@@ -190,6 +190,19 @@ def test_collect_clears_and_off_is_one_null_context():
     assert tracing.collect() == []
 
 
+@pytest.mark.parametrize("on", [False, True])
+def test_suspended_records_nothing_then_restores(on):
+    tracing.enable(on)
+    with tracing.suspended():
+        assert not tracing.enabled()
+        with tracing.span("a"):
+            pass
+    assert tracing.enabled() == on
+    with tracing.span("b"):
+        pass
+    assert [r.name for r in tracing.collect()] == (["b"] if on else [])
+
+
 def test_threads_keep_their_own_stacks():
     tracing.enable()
     barrier = threading.Barrier(2)
